@@ -1,0 +1,150 @@
+"""Audio -> pose-sequence generator, eval forward at static lengths.
+
+Counterpart of the JAX package's ``models/generator.py`` (AudioEncoder,
+UNet1D, SequenceGeneratorCNN). Submodule names are the reference torch
+attributes (``audio_encoder.specgram_encoder_2d.{n//2}.{n%2}``,
+``unet.{e0..e6,d1..d5}``, ``decoder.{0..4}``), so reference-layout checkpoints
+load with ``strict=True``. Inside, 2D tensors are (B, C, H, W) and 1D tensors
+(B, C, T); the public output is the JAX layout (B, T, 2, K).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops import stem as stem_ops
+from ..ops.resize import interpolate_bilinear, interpolate_linear_time
+from .blocks import ConvNormRelu
+
+# (out channels, extra ConvNormRelu arguments) of the audio encoder's 8 layers;
+# kernel tuples are (H = mel, W = time)
+ENCODER_SPECS = [(64, {}), (64, dict(downsample=True)),
+                 (128, {}), (128, dict(downsample=True)),
+                 (256, {}), (256, dict(downsample=True)),
+                 (256, {}), (256, dict(kernel_size=(6, 3), stride=1, padding=0))]
+
+
+class AudioEncoder(nn.Module):
+    """2D CNN over the mel spectrogram, resampled to the video frame rate.
+
+    Layers 0-2 run as one stem (``ops/stem.py``): the fused CUDA kernel on the
+    card, the plain layers on the CPU or when ``plain`` is set.
+    """
+
+    def __init__(self, norm: str = "IN", leaky: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        layers, c_in = [], 1
+        for c_out, kw in ENCODER_SPECS:
+            layers.append(ConvNormRelu("2d", c_in, c_out, norm=norm, leaky=leaky,
+                                       dtype=dtype, generator=generator, **kw))
+            c_in = c_out
+        self.specgram_encoder_2d = nn.Sequential(
+            *[nn.Sequential(layers[i], layers[i + 1]) for i in range(0, 8, 2)])
+        self.slope = layers[0].slope
+        self.dtype = dtype
+
+    def layers(self) -> list[ConvNormRelu]:
+        return [m for pair in self.specgram_encoder_2d for m in pair]
+
+    def forward(self, mel: torch.Tensor, num_frames: int,
+                plain: bool = False) -> torch.Tensor:
+        """mel (B, 80, T_mel) -> (B, 256, num_frames)."""
+        layers = self.layers()
+        stem = stem_ops.stem_plain if plain else stem_ops.audio_encoder_stem
+        x = stem(mel, *(layers[i].conv.weight for i in range(3)),
+                 slope=self.slope, dtype=self.dtype)  # (B, 40, W2, 128)
+        x = x.permute(0, 3, 1, 2)
+        for layer in layers[3:]:
+            x = layer(x)
+        # (B, 256, H', W') -> bilinear to (1, num_frames), no antialiasing
+        return interpolate_bilinear(x, (1, num_frames))[:, :, 0, :]
+
+
+class UNet1D(nn.Module):
+    """Temporal 1D UNet with additive skips after linear upsampling (T >= 32)."""
+
+    def __init__(self, in_channels: int, norm: str = "IN", leaky: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+
+        def cnr(c_in, down=False):
+            return ConvNormRelu("1d", c_in, 256, downsample=down, norm=norm,
+                                leaky=leaky, dtype=dtype, generator=generator)
+
+        self.e0, self.e1 = cnr(in_channels), cnr(256)
+        self.e2, self.e3, self.e4, self.e5, self.e6 = (cnr(256, True) for _ in range(5))
+        self.d5, self.d4, self.d3, self.d2, self.d1 = (cnr(256) for _ in range(5))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        e0 = self.e0(x)
+        e1 = self.e1(e0)
+        e2 = self.e2(e1)
+        e3 = self.e3(e2)
+        e4 = self.e4(e3)
+        e5 = self.e5(e4)
+        e6 = self.e6(e5)
+
+        def up(a, b):
+            return interpolate_linear_time(a, b.shape[-1]) + b
+
+        d5 = self.d5(up(e6, e5))
+        d4 = self.d4(up(d5, e4))
+        d3 = self.d3(up(d4, e3))
+        d2 = self.d2(up(d3, e2))
+        return self.d1(up(d2, e1))
+
+
+class SequenceGeneratorCNN(nn.Module):
+    """AudioEncoder -> [concat clip code] -> UNet1D -> conv decoder -> (B, T, 2, K)."""
+
+    def __init__(self, num_landmarks: int = 121, code_dim: Optional[int] = None,
+                 norm: str = "IN", leaky: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        generator = generator or torch.Generator().manual_seed(0)
+        self.num_landmarks = num_landmarks
+        self.code_dim = code_dim
+        self.dtype = dtype
+        self.audio_encoder = AudioEncoder(norm, leaky, dtype, generator)
+        self.unet = UNet1D(256 + (code_dim or 0), norm, leaky, dtype, generator)
+        out = nn.Conv1d(256, 2 * num_landmarks, 1, bias=True)
+        # flax nn.Conv default: lecun normal (truncated at 2 sigma), zero bias
+        std = math.sqrt(1.0 / 256) / 0.87962566103423978
+        with torch.no_grad():
+            nn.init.trunc_normal_(out.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            out.bias.zero_()
+        self.decoder = nn.Sequential(
+            *[ConvNormRelu("1d", 256, 256, norm=norm, leaky=leaky, dtype=dtype,
+                           generator=generator) for _ in range(4)], out)
+
+    def forward(self, mel: torch.Tensor, num_frames: int,
+                code: Optional[torch.Tensor] = None,
+                plain: bool = False) -> torch.Tensor:
+        """mel (B, 80, T_mel); code (B, code_dim) or (B, code_dim, T) ->
+        normalized poses (B, num_frames, 2, K) in the compute dtype.
+        ``plain`` runs the stem's plain version even on the card (a reference)."""
+        x = self.audio_encoder(mel, num_frames, plain)  # (B, 256, T)
+        if self.code_dim is not None:
+            if code is None:
+                raise ValueError("this generator takes a clip code")
+            if code.ndim == 2:
+                code = code[:, :, None].expand(-1, -1, x.shape[-1])
+            x = torch.cat([x, code.to(x.dtype)], dim=1)
+        x = self.unet(x)
+        for layer in self.decoder[:4]:
+            x = layer(x)
+        out = self.decoder[4]
+        x = F.conv1d(x, out.weight.to(self.dtype), out.bias.to(self.dtype))
+        # (B, 2K, T) -> (B, T, 2K) -> (B, T, 2, K): channel = coord * K + k
+        return x.transpose(1, 2).reshape(x.shape[0], num_frames, 2,
+                                         self.num_landmarks)
