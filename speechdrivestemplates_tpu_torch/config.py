@@ -46,19 +46,14 @@ class TrainConfig:
 
 @dataclass
 class Config:
-    PIPELINE_TYPE: Optional[str] = None
     VOICE2POSE: Voice2PoseConfig = field(default_factory=Voice2PoseConfig)
     DATASET: DatasetConfig = field(default_factory=DatasetConfig)
     TRAIN: TrainConfig = field(default_factory=TrainConfig)
 
 
-def get_cfg_defaults() -> Config:
-    return Config()
-
-
 def sdt_bp(speaker: str = "oliver", precision: str = "bf16") -> Config:
     """SDT-BP: SequenceGeneratorCNN with a 32-d clip code, IN, leaky ReLU."""
-    cfg = Config(PIPELINE_TYPE="Voice2Pose")
+    cfg = Config()
     cfg.VOICE2POSE.GENERATOR.NAME = "SequenceGeneratorCNN"
     cfg.VOICE2POSE.GENERATOR.CLIP_CODE.DIMENSION = 32
     cfg.DATASET.SPEAKER = speaker

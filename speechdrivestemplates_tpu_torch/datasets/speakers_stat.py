@@ -2,8 +2,7 @@
 
 The numbers ship as a compressed npz beside this module (``speakers_stat.npz``,
 keys ``{global|parted}/{speaker}/{mean,std,scale_factor}``), a copy of the
-reference's per-speaker tables, loaded lazily. New speakers can be registered
-at run time with ``register_speaker_stat``.
+reference's per-speaker tables, loaded lazily.
 """
 
 from __future__ import annotations
@@ -31,19 +30,6 @@ def _load_tables() -> Dict[str, Dict[str, Dict[str, np.ndarray]]]:
                     tables[space].setdefault(speaker, {})[field] = z[key]
             _tables = tables
     return _tables
-
-
-def register_speaker_stat(speaker: str, mean: np.ndarray, std: np.ndarray,
-                          scale_factor: float, parted: bool) -> None:
-    """Register stats for a new speaker at run time."""
-    tables = _load_tables()
-    space = "parted" if parted else "global"
-    mean = np.asarray(mean, dtype=np.float64).reshape(-1)
-    std = np.asarray(std, dtype=np.float64).reshape(-1)
-    if mean.shape != std.shape:
-        raise ValueError(f"mean {mean.shape} and std {std.shape} differ in shape")
-    tables[space][speaker] = {
-        "mean": mean, "std": std, "scale_factor": np.float64(scale_factor)}
 
 
 def get_speaker_stat(speaker: str, num_kp: int, parted: bool) -> Dict[str, np.ndarray]:

@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-shared", "-Xcompiler", "-fPIC"]
 
 # name -> {C function: argtypes}; every function returns cudaError_t as int
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -38,15 +38,11 @@ def channel_norm_1d(x: torch.Tensor) -> torch.Tensor:
     return (xf - mean) * torch.rsqrt(var + NORM_EPS)
 
 
-def lrelu(x: torch.Tensor, slope: float) -> torch.Tensor:
-    return F.leaky_relu(x, slope) if slope else F.relu(x)
-
-
 def conv_norm_relu_2d(x: torch.Tensor, weight: torch.Tensor, stride, padding,
                       slope: float, dtype: torch.dtype) -> torch.Tensor:
     """One IN-normalized 2D ConvNormRelu in the compute dtype."""
     y = F.conv2d(x.to(dtype), weight.to(dtype), stride=stride, padding=padding)
-    return lrelu(instance_norm_2d(y), slope).to(dtype)
+    return F.leaky_relu(instance_norm_2d(y), slope).to(dtype)
 
 
 def _kaiming_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -87,4 +83,4 @@ class ConvNormRelu(nn.Module):
                                      self.dtype)
         y = F.conv1d(x.to(self.dtype), c.weight.to(self.dtype), stride=c.stride,
                      padding=c.padding)
-        return lrelu(channel_norm_1d(y), self.slope).to(self.dtype)
+        return F.leaky_relu(channel_norm_1d(y), self.slope).to(self.dtype)

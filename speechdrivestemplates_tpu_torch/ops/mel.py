@@ -157,7 +157,3 @@ def mel_spectrogram(audio: torch.Tensor) -> torch.Tensor:
         return mel_spectrogram_plain(audio)
     return mel_spectrogram_kernel(audio)
 
-
-def mel_frames_for_audio_length(audio_length: int, hop_length: int = HOP_LENGTH) -> int:
-    """Number of mel frames produced for a given audio length."""
-    return audio_length // hop_length + 1

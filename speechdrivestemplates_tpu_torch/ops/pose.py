@@ -46,20 +46,10 @@ def _reroot_tensors(device: torch.device):
             torch.from_numpy(mask).to(device))
 
 
-def _broadcast_stat(stat: torch.Tensor, num_landmarks: int) -> torch.Tensor:
-    """A flat (242,) or batched (B, 242) mean/std shaped to broadcast over
-    (T, 2, K) samples or (B, T, 2, K) batches."""
-    if stat.ndim == 1:
-        return stat.reshape(1, 2, num_landmarks)
-    if stat.ndim == 2:
-        return stat.reshape(stat.shape[0], 1, 2, num_landmarks)
-    raise NotImplementedError(f"stat ndim {stat.ndim} unsupported")
-
-
 def denormalize_poses(kp, mean, std, num_landmarks: int = 121):
-    """Inverse per-speaker z-score."""
-    return (kp * _broadcast_stat(std, num_landmarks)
-            + _broadcast_stat(mean, num_landmarks))
+    """Inverse per-speaker z-score of (B, T, 2, K) poses; mean/std (B, 2K)."""
+    shape = (mean.shape[0], 1, 2, num_landmarks)
+    return kp * std.reshape(shape) + mean.reshape(shape)
 
 
 def parted_to_global(poses: torch.Tensor) -> torch.Tensor:

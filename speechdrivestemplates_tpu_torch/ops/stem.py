@@ -22,6 +22,7 @@ from ..models.blocks import conv_norm_relu_2d
 H1 = 80      # mel bins = conv1's output height
 C1 = 64      # conv1 / conv2 channels
 C3 = 128     # conv3 channels
+CONV_TILE = 128  # output pixels per block of the kernel's conv (csrc/stem.cu: TM)
 
 
 def stem_dims(w1: int) -> tuple[int, int]:
@@ -71,7 +72,7 @@ def stem_kernel(mel: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     assert y1.is_contiguous()
 
     f32 = dict(dtype=torch.float32, device=dev)
-    n_wt = -(-W2 // 64)
+    n_wt = -(-W2 // CONV_TILE)
     parts = B * max(H1 * C1, H2 * n_wt * C3)
     y2 = torch.empty((B, H2, W2, C1), **f32)
     y3 = torch.empty((B, H2, W2, C3), **f32)

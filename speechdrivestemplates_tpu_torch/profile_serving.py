@@ -27,7 +27,6 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     from torch.profiler import ProfilerActivity, profile
@@ -72,7 +71,7 @@ def main(argv=None) -> None:
         "pose_frames_per_s": args.batch * cfg.DATASET.NUM_FRAMES / forward_ms * 1e3,
         "device_busy_ms": busy, "idle_share": max(0.0, 1 - busy / forward_ms),
         "kernels": [{"name": k[:90], "ms": round(ms, 4), "calls": n}
-                    for k, ms, n in rows[:args.top]]}))
+                    for k, ms, n in rows[:25]]}))
 
 
 if __name__ == "__main__":

@@ -10,7 +10,7 @@ from the input.
 Command line (one wav request; a reference-layout ``.pth`` checkpoint):
 
     python -m speechdrivestemplates_tpu_torch.serving ckpt.pth in.wav out.npz \
-        [--code-seed N] [--device cuda|cpu] [--speaker oliver] [--precision bf16]
+        [--code-seed N] [--device cuda|cpu] [--speaker oliver]
 
 Audio longer than DATASET.AUDIO_LENGTH is cropped, shorter audio zero-padded.
 The code is N(0, 1) from ``numpy.random.RandomState(code_seed)``.
@@ -100,11 +100,10 @@ def main(argv=None) -> None:
                     help="seed of the N(0,1) template code")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--speaker", default="oliver")
-    ap.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = sdt_bp(speaker=args.speaker, precision=args.precision)
+    cfg = sdt_bp(speaker=args.speaker)
     fn, has_code = build_serving_fn(cfg, load_reference_pth(args.checkpoint), device)
 
     L = cfg.DATASET.AUDIO_LENGTH

@@ -10,7 +10,7 @@ the JAX package's ``main.py --export_torch`` writes).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -40,10 +40,10 @@ def reverse_generator(path: Path) -> str:
     raise KeyError(f"unmapped generator path {path}")
 
 
-def export_module_params(params: Dict[str, Any], torch_prefix: str,
-                         reverse: Callable[[Path], str]) -> Dict[str, np.ndarray]:
-    """Walk a module's param tree and emit reference-keyed numpy tensors
-    (IN-normalized modules: convs only, no norm parameters or statistics)."""
+def params_from_jax(params_g: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``SequenceGeneratorCNN`` params -> the port's state_dict (float32).
+
+    IN-normalized generators only: convs, no norm parameters or statistics."""
     sd: Dict[str, np.ndarray] = {}
 
     def visit(path: Path, node: Any):
@@ -52,39 +52,31 @@ def export_module_params(params: Dict[str, Any], torch_prefix: str,
         if "conv" in node or "norm" in node:  # a ConvNormRelu parent
             if "norm" in node:
                 raise NotImplementedError("normalization parameters (BN) are not ported")
-            conv = node["conv"]
-            tparent = reverse(path)
-            sd[f"{torch_prefix}{tparent}.conv.weight"] = _conv_to_torch(conv["kernel"])
-            if "bias" in conv:
-                sd[f"{torch_prefix}{tparent}.conv.bias"] = np.asarray(conv["bias"])
+            sd[f"{reverse_generator(path)}.conv.weight"] = _conv_to_torch(
+                node["conv"]["kernel"])
             return
-        if "kernel" in node:  # a plain final conv (no norm wrapper)
-            tparent = reverse(path)
-            sd[f"{torch_prefix}{tparent}.weight"] = _conv_to_torch(node["kernel"])
+        if "kernel" in node:  # the final conv (no norm wrapper)
+            tparent = reverse_generator(path)
+            sd[f"{tparent}.weight"] = _conv_to_torch(node["kernel"])
             if "bias" in node:
-                sd[f"{torch_prefix}{tparent}.bias"] = np.asarray(node["bias"])
+                sd[f"{tparent}.bias"] = np.asarray(node["bias"])
             return
         for k, v in node.items():
             visit(path + (k,), v)
 
-    visit((), params)
+    visit((), params_g)
     if not sd:
-        raise ValueError(f"nothing exported for prefix {torch_prefix!r}")
-    return sd
-
-
-def params_from_jax(params_g: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``SequenceGeneratorCNN`` params -> the port's state_dict (float32)."""
-    sd = export_module_params(params_g, "", reverse_generator)
+        raise ValueError("no generator parameters found")
     return {k: torch.tensor(np.asarray(v, dtype=np.float32)) for k, v in sd.items()}
 
 
-def load_reference_pth(path: str, prefix: str = "netG.") -> Dict[str, torch.Tensor]:
+def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
     """The generator's state_dict out of a reference-layout checkpoint.
 
     Keys are ``module.netG.<name>`` (or ``netG.<name>`` without the
     DataParallel prefix); every other entry (mel buffers, clip codes, pose
     encoder) is left out."""
+    prefix = "netG."
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     msd = ckpt.get("model_state_dict", ckpt)
     out = {}

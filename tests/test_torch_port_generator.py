@@ -158,14 +158,13 @@ def test_cli_round_trip_from_jax_export(rng, jax_params, tmp_path, capsys):
         w.setframerate(16000)
         w.writeframes(pcm.tobytes())
     out = str(tmp_path / "out.npz")
-    serving.main([ckpt, wav_path, out, "--code-seed", "5", "--device", "cpu",
-                  "--precision", "fp32"])
+    serving.main([ckpt, wav_path, out, "--code-seed", "5", "--device", "cpu"])
     assert "64 pose frames" in capsys.readouterr().out
 
     buf = np.zeros((1, 68267), np.float32)
     buf[0, :40000] = pcm.astype(np.float32) / 32768.0
     code = np.random.RandomState(5).randn(1, 32).astype(np.float32)
-    fn, _ = serving.build_serving_fn(sdt_bp(precision="fp32"), loaded, device="cpu")
+    fn, _ = serving.build_serving_fn(sdt_bp(), loaded, device="cpu")
     with np.load(out) as z:
         assert z["poses"].shape == (64, 2, 121) and str(z["speaker"]) == "oliver"
         np.testing.assert_array_equal(z["poses"], fn(buf, code)[0].numpy())
