@@ -212,8 +212,8 @@ def main() -> None:
         check(bool(torch.isfinite(poses).all()), f"non-finite poses at B={b}")
         seen.append(dict(kernels.LAUNCHES))
     launches = dict(kernels.LAUNCHES)
-    for name in ("mel", "stem"):
-        counts = [s.get(name, 0) for s in seen]
+    growth = {name: [s.get(name, 0) for s in seen] for name in ("mel", "stem")}
+    for name, counts in growth.items():
         check(counts == [1, 2, 3], f"{name} kernel launches per request: {counts}")
     report["mel"]["launches"] = launches["mel"]
     report["stem"]["launches"] = launches["stem"]
@@ -233,7 +233,8 @@ def main() -> None:
           f"bf16 kernel path vs fp32 plain forward: rel L2 {rel_l2}, corr {corr}")
     fwd_ms = cuda_ms(fn, [requests[-1]], 20)
     fps = 128 * 64 / (fwd_ms / 1e3)
-    print(f"[serve] SDT-BP bf16 B=1,16,128 ok; launches {launches}; B=128 vs fp32 plain: "
+    print(f"[serve] SDT-BP bf16 B=1,16,128 ok; launch counts after each request "
+          f"{growth}; B=128 vs fp32 plain: "
           f"rel L2 {rel_l2:.4e}, corr {corr:.6f}; forward {fwd_ms:.4f} ms = "
           f"{fps:.1f} pose-frames/s", flush=True)
     del model16, model32, out16, out32

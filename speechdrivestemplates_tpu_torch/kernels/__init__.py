@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -61,8 +62,6 @@ def build_all(names=None) -> dict:
     """Compile the named (default: all) kernels that are missing or stale, all
     ``nvcc`` processes started together. Returns ``{name: seconds}`` for the
     ones built."""
-    import time
-
     names = list(names or SIGNATURES)
     todo = [n for n in names if _stale(n)]
     if not todo:

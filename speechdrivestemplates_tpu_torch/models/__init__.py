@@ -35,7 +35,7 @@ def build_model(name: str, cfg, device="cuda",
     if name not in MODELS:
         raise KeyError(f"Unknown model: {name}; available: {sorted(MODELS)}")
     gcfg = cfg.VOICE2POSE.GENERATOR
-    model = SequenceGeneratorCNN(
+    model = MODELS[name](
         num_landmarks=cfg.DATASET.NUM_LANDMARKS,
         code_dim=gcfg.CLIP_CODE.DIMENSION,
         norm=gcfg.NORM,
