@@ -7,12 +7,20 @@ Phases, each of which must pass or the script exits non-zero:
   1. device   a CUDA device is present; its name and power limit are printed
   2. build    the CUDA kernels compile from speechdrivestemplates_tpu_torch/csrc
   3. mel      the fused STFT+mel kernel vs its plain PyTorch version at (128, 68267)
-  4. stem     the fused audio-encoder stem kernel vs its plain version at (128, 80, 427),
-              in fp32 (tight tolerance) and in bf16 (the serving dtype)
-  5. serve    SDT-BP, bf16, full width, seeded weights: three requests (B = 1, 16, 128)
-              through build_serving_fn; the kernels' launch counters must grow on every
-              request; the B=128 result is held to an fp32 all-plain forward
-  6. cli      the serving command line on a seeded wav and a reference-layout .pth
+  4. conv1    the fused conv1+IN1 kernel vs its plain version at (128, 80, 427): fp32
+              at rtol/atol 2e-5, zero rows 0 and 81, bf16 within 2e-2 mean relative error
+  5. stem     the stem (conv1 kernel, then the fused stem kernel) vs its plain version at
+              (128, 80, 427), in fp32 (tight tolerance) and in bf16 (the serving dtype);
+              the stem kernel alone vs its plain version on the same activation
+  6. shift    the tap-shift probe kernel, aligned and subtile, vs its plain version at
+              (128, 4480, 128) x (9, 128, 128), within one bf16 rounding
+  7. serve    SDT-BP, bf16, full width, seeded weights: three requests (B = 1, 16, 128)
+              through build_serving_fn; the mel, conv1 and stem launch counters must read
+              1, 2, 3 after the requests; the B=128 result is held to an fp32 all-plain
+              forward
+  8. cli      the serving command line on a seeded wav and a reference-layout .pth
+  9. probe    the kernel-probe command line (profile_kernels, both probes) in a
+              subprocess: rc 0, its JSON line, both of its kernels launched
 Then one JSON line with every kernel's error, times, bound and launches, the card's
 name and power limit, and last {"ok": true, "device": {...}}.
 
@@ -63,9 +71,13 @@ def main() -> None:
     from speechdrivestemplates_tpu_torch import kernels
     from speechdrivestemplates_tpu_torch.config import sdt_bp
     from speechdrivestemplates_tpu_torch.models import build_model
+    from speechdrivestemplates_tpu_torch.ops import conv1 as C1
     from speechdrivestemplates_tpu_torch.ops import mel as M
+    from speechdrivestemplates_tpu_torch.ops import shift_probe as SP
     from speechdrivestemplates_tpu_torch.ops import stem as S
     from speechdrivestemplates_tpu_torch.serving import build_serving_fn
+    from speechdrivestemplates_tpu_torch.utils.timing import card as card_line
+    from speechdrivestemplates_tpu_torch.utils.timing import cuda_ms
 
     dev = torch.device("cuda")
     # reference arithmetic in full fp32: no TF32 in matmuls or cuDNN convolutions
@@ -74,10 +86,7 @@ def main() -> None:
     rng = np.random.RandomState(0)
 
     # ---- 1. device ---------------------------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60).stdout.strip().splitlines()
-    card = smi[0].strip() if smi else "nvidia-smi unavailable"
+    card = card_line()
     print(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}; {card}", flush=True)
 
@@ -88,18 +97,6 @@ def main() -> None:
         kernels.library(name)
     print(f"[build] {sorted(kernels.SIGNATURES)} in {time.perf_counter() - t0:.2f} s "
           f"(compiled now: {built})", flush=True)
-
-    def cuda_ms(fn, arg_sets, iters=20):
-        for args in arg_sets:
-            fn(*args)
-        torch.cuda.synchronize()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for i in range(iters):
-            fn(*arg_sets[i % len(arg_sets)])
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / iters
 
     def dev_randn(*shape, scale=1.0):
         return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
@@ -144,58 +141,153 @@ def main() -> None:
           f"torch.stft {report['mel']['library_ms']:.4f} ms, bound {mel_b:.4f} ms "
           f"({mel_by})", flush=True)
 
-    # ---- 4. stem kernel ----------------------------------------------------------
+    # ---- 4. conv1 kernel ---------------------------------------------------------
+    bf = torch.bfloat16
     W1 = T
-    H2, W2 = S.stem_dims(W1)
     mels = [dev_randn(B, 80, W1) for _ in range(3)]
     w1, w2, w3 = dev_randn(64, 1, 3, 3, scale=0.2), dev_randn(64, 64, 4, 4, scale=0.05), \
         dev_randn(128, 64, 3, 3, scale=0.05)
+    ref1 = C1.conv1_in_plain(mels[0], w1, 0.2, torch.float32)
+    k1 = C1.conv1_in_kernel(mels[0], w1, 0.2, torch.float32)
+    k1b = C1.conv1_in_kernel(mels[0], w1, 0.2, bf)
+    torch.cuda.synchronize()
+    check(k1.shape == ref1.shape == k1b.shape == (B, C1.ROWS, W1, 64),
+          f"conv1 shape {tuple(k1.shape)}")
+    conv1_err = (k1 - ref1).abs().max().item()
+    # fp32 FMAs of the same operands on both sides; the statistics are summed in
+    # another order: the gate of tests/test_conv1_pallas.py
+    check(torch.allclose(k1, ref1, rtol=2e-5, atol=2e-5),
+          f"conv1 fp32 kernel vs plain: max abs err {conv1_err}")
+    for t in (k1, k1b):
+        check(not t[:, 0].any() and not t[:, -1].any(), "conv1 rows 0 and 81 are not zero")
+    conv1_rel16 = ((k1b.float() - ref1).abs().mean() / ref1.abs().mean()).item()
+    check(conv1_rel16 < 2e-2, f"conv1 bf16 kernel vs fp32 plain: mean rel err {conv1_rel16}")
+    del ref1, k1, k1b
+
+    def conv1_library(mel):
+        x = F.conv2d(mel[:, None].to(bf), w1.to(bf), padding=1)
+        return F.leaky_relu(F.instance_norm(x), 0.2)
+
+    conv1_b, conv1_by = bound_ms(4.0 * B * 80 * W1 + 4.0 * w1.numel() + 2.0 * B * C1.ROWS * W1 * 64,
+                                 2.0 * B * 80 * W1 * 64 * 9, "fp32")
+    conv1_args = [(m, w1, 0.2, bf) for m in mels]
+    report["conv1"] = dict(
+        name="conv1_in_fused", route="cuda",
+        source="speechdrivestemplates_tpu_torch/csrc/conv1.cu",
+        replaces="probes/conv1_pallas.py:117",
+        max_abs_err=conv1_err,
+        ms=cuda_ms(C1.conv1_in_kernel, conv1_args),
+        plain_ms=cuda_ms(C1.conv1_in_plain, conv1_args, 5),
+        bound_ms=conv1_b, bound_by=conv1_by,
+        library_ms=cuda_ms(conv1_library, [(m,) for m in mels]))
+    print(f"[conv1] (128, 80, {W1}) fp32 max abs err {conv1_err:.3e} (rtol 2e-5, atol 2e-5); "
+          f"rows 0 and 81 zero; bf16 mean rel err {conv1_rel16:.3e} (< 2e-2); bf16 kernel "
+          f"{report['conv1']['ms']:.4f} ms, plain {report['conv1']['plain_ms']:.4f} ms, cuDNN "
+          f"conv1+IN+lrelu {report['conv1']['library_ms']:.4f} ms, bound {conv1_b:.4f} ms "
+          f"({conv1_by})", flush=True)
+
+    # ---- 5. stem: conv1 kernel + stem kernel ---------------------------------------
+    H2, W2 = S.stem_dims(W1)
     ref32 = S.stem_plain(mels[0], w1, w2, w3, 0.2, torch.float32)
     k32 = S.stem_kernel(mels[0], w1, w2, w3, 0.2, torch.float32)
     torch.cuda.synchronize()
     check(k32.shape == ref32.shape == (B, H2, W2, 128), f"stem shape {tuple(k32.shape)}")
-    stem_err = (k32 - ref32).abs().max().item()
+    whole_err = (k32 - ref32).abs().max().item()
     # both sides accumulate fp32 products of the same operands (no TF32): they differ
     # by summation order only, ~1e-6 relative on O(1) post-norm values
     check(torch.allclose(k32, ref32, rtol=2e-4, atol=2e-5),
-          f"stem fp32 kernel vs plain: max abs err {stem_err}")
-    k16 = S.stem_kernel(mels[0], w1, w2, w3, 0.2, torch.bfloat16).float()
+          f"stem fp32 kernels vs plain: max abs err {whole_err}")
+    k16 = S.stem_kernel(mels[0], w1, w2, w3, 0.2, bf).float()
     err16 = (k16 - ref32).abs().flatten()
     q99 = torch.quantile(err16[:: max(1, err16.numel() // 4_000_000)], 0.99).item()
     check(q99 < 0.05 and err16.mean().item() < 0.02,
-          f"stem bf16 kernel vs fp32 plain: p99 {q99}, mean {err16.mean().item()}")
+          f"stem bf16 kernels vs fp32 plain: p99 {q99}, mean {err16.mean().item()}")
     del ref32, k32, k16, err16
+    # the stem kernel alone, on one conv1 activation
+    y1 = C1.conv1_in_plain(mels[0], w1, 0.2, torch.float32)
+    t32 = S.stem_tail_kernel(y1, w2, w3, 0.2, torch.float32)
+    tref = S.stem_tail_plain(y1, w2, w3, 0.2, torch.float32)
+    torch.cuda.synchronize()
+    stem_err = (t32 - tref).abs().max().item()
+    check(torch.allclose(t32, tref, rtol=2e-4, atol=2e-5),
+          f"stem kernel fp32 vs plain on one activation: max abs err {stem_err}")
+    del y1, t32, tref
+    y1s = [C1.conv1_in_kernel(m, w1, 0.2, bf) for m in mels]
+    w2b, w3b = w2.to(bf), w3.to(bf)
 
-    def stem_library(mel):
-        x = F.conv2d(mel[:, None].to(torch.bfloat16), w1.to(torch.bfloat16), padding=1)
-        for w, s in ((w2, 2), (w3, 1)):
-            x = F.leaky_relu(F.instance_norm(x), 0.2)
-            x = F.conv2d(x, w.to(torch.bfloat16), stride=s, padding=1)
+    def stem_library(y1):
+        x = F.conv2d(y1.permute(0, 3, 1, 2), w2b, stride=2, padding=(0, 1))
+        x = F.leaky_relu(F.instance_norm(x), 0.2)
+        x = F.conv2d(x, w3b, padding=1)
         return F.leaky_relu(F.instance_norm(x), 0.2)
 
-    bf = torch.bfloat16
-    stem_flops = 2.0 * B * 80 * W1 * 64 * 9 + 2.0 * B * H2 * W2 * (
-        64 * 64 * 16 + 128 * 64 * 9)
-    stem_bytes = 4.0 * B * 80 * W1 + 4.0 * (w1.numel() + w2.numel() + w3.numel()) \
+    # the stem kernel's work: conv2 + conv3 on the 80 data rows of the activation
+    stem_flops = 2.0 * B * H2 * W2 * (64 * 64 * 16 + 128 * 64 * 9)
+    stem_bytes = 2.0 * B * 80 * W1 * 64 + 2.0 * (w2.numel() + w3.numel()) \
         + 2.0 * B * H2 * W2 * 128
     stem_b, stem_by = bound_ms(stem_bytes, stem_flops, "bf16")
-    stem_args = [(m, w1, w2, w3, 0.2, bf) for m in mels]
+    tail_args = [(y, w2, w3, 0.2, bf) for y in y1s]
     report["stem"] = dict(
         name="audio_encoder_stem_fused", route="cuda",
         source="speechdrivestemplates_tpu_torch/csrc/stem.cu",
         replaces="probes/stem_pallas.py:192",
         max_abs_err=stem_err,
-        ms=cuda_ms(S.stem_kernel, stem_args, 10),
-        plain_ms=cuda_ms(S.stem_plain, stem_args, 10),
+        ms=cuda_ms(S.stem_tail_kernel, tail_args, 10),
+        plain_ms=cuda_ms(S.stem_tail_plain, tail_args, 10),
         bound_ms=stem_b, bound_by=stem_by,
-        library_ms=cuda_ms(stem_library, [(m,) for m in mels], 10))
-    print(f"[stem] (128, 80, {W1}) fp32 max abs err {stem_err:.3e} (rtol 2e-4, atol 2e-5); "
-          f"bf16 vs fp32 p99 {q99:.4f} (< 0.05); bf16 kernel {report['stem']['ms']:.4f} ms, "
-          f"plain {report['stem']['plain_ms']:.4f} ms, cuDNN {report['stem']['library_ms']:.4f} ms, "
-          f"bound {stem_b:.4f} ms ({stem_by})", flush=True)
-    del mels, audios
+        library_ms=cuda_ms(stem_library, [(y,) for y in y1s], 10))
+    whole_ms = cuda_ms(S.stem_kernel, [(m, w1, w2, w3, 0.2, bf) for m in mels], 10)
+    print(f"[stem] (128, 80, {W1}) conv1+stem kernels fp32 max abs err {whole_err:.3e} "
+          f"(rtol 2e-4, atol 2e-5), bf16 vs fp32 p99 {q99:.4f} (< 0.05); stem kernel alone "
+          f"fp32 max abs err {stem_err:.3e}; bf16 stem kernel {report['stem']['ms']:.4f} ms, "
+          f"plain {report['stem']['plain_ms']:.4f} ms, cuDNN {report['stem']['library_ms']:.4f} "
+          f"ms, bound {stem_b:.4f} ms ({stem_by}); whole stem (conv1 + stem kernels) "
+          f"{whole_ms:.4f} ms", flush=True)
+    del mels, audios, y1s
 
-    # ---- 5. serving --------------------------------------------------------------
+    # ---- 6. shift-probe kernel ------------------------------------------------------
+    NP, MP, CP = 128, 4480, 128
+    MP_out = MP - 2 * 224
+    xs = [dev_randn(NP, MP, CP, scale=0.1).to(bf) for _ in range(3)]
+    wsh = dev_randn(9, CP, CP, scale=0.05).to(bf)
+    shift_ms, shift_err = {}, 0.0
+    for mode in SP.MODES:
+        ks = SP.shift_taps_kernel(xs[0], wsh, MP_out, mode)
+        ps = SP.shift_taps_plain(xs[0], wsh, MP_out, mode)
+        torch.cuda.synchronize()
+        check(ks.shape == ps.shape == (NP, MP_out, CP) and ks.dtype == bf,
+              f"shift {mode} shape {tuple(ks.shape)} {ks.dtype}")
+        err = (ks.float() - ps.float()).abs().max().item()
+        # the same fp32 sums in another order, each cast to bf16: one rounding apart
+        check(torch.allclose(ks.float(), ps.float(), rtol=1e-2, atol=1e-3),
+              f"shift {mode} kernel vs plain: max abs err {err}")
+        shift_err = max(shift_err, err)
+        shift_ms[mode] = cuda_ms(SP.shift_taps_kernel, [(x, wsh, MP_out, mode) for x in xs])
+        del ks, ps
+    w_conv = wsh.permute(2, 1, 0).contiguous()
+
+    def shift_library(x):
+        return F.conv1d(x[:, :MP_out + 8].transpose(1, 2), w_conv)
+
+    shift_b, shift_by = bound_ms(2.0 * (NP * MP * CP + wsh.numel() + NP * MP_out * CP),
+                                 2.0 * NP * MP_out * CP * CP * 9, "bf16")
+    report["shift_probe"] = dict(
+        name="shift_taps_probe", route="cuda",
+        source="speechdrivestemplates_tpu_torch/csrc/shift_probe.cu",
+        replaces="bench_profile.py:523",
+        max_abs_err=shift_err,
+        ms=shift_ms["subtile"],
+        plain_ms=cuda_ms(SP.shift_taps_plain, [(x, wsh, MP_out, "subtile") for x in xs], 5),
+        bound_ms=shift_b, bound_by=shift_by,
+        library_ms=cuda_ms(shift_library, [(x,) for x in xs]))
+    print(f"[shift] ({NP}, {MP}, {CP}) x (9, {CP}, {CP}) aligned and subtile: max abs err "
+          f"{shift_err:.3e} (rtol 1e-2, atol 1e-3); kernel aligned {shift_ms['aligned']:.4f} ms, "
+          f"subtile {shift_ms['subtile']:.4f} ms, plain {report['shift_probe']['plain_ms']:.4f} "
+          f"ms, cuDNN conv1d {report['shift_probe']['library_ms']:.4f} ms, bound "
+          f"{shift_b:.4f} ms ({shift_by})", flush=True)
+    del xs
+
+    # ---- 7. serving --------------------------------------------------------------
     cfg = sdt_bp(speaker="oliver", precision="bf16")
     sd = build_model(cfg.VOICE2POSE.GENERATOR.NAME, cfg, device="cpu",
                      generator=torch.Generator().manual_seed(0)).state_dict()
@@ -212,11 +304,10 @@ def main() -> None:
         check(bool(torch.isfinite(poses).all()), f"non-finite poses at B={b}")
         seen.append(dict(kernels.LAUNCHES))
     launches = dict(kernels.LAUNCHES)
-    growth = {name: [s.get(name, 0) for s in seen] for name in ("mel", "stem")}
+    growth = {name: [s.get(name, 0) for s in seen] for name in ("mel", "conv1", "stem")}
     for name, counts in growth.items():
         check(counts == [1, 2, 3], f"{name} kernel launches per request: {counts}")
-    report["mel"]["launches"] = launches["mel"]
-    report["stem"]["launches"] = launches["stem"]
+        report[name]["launches"] = launches[name]
 
     audio, code = requests[-1]
     model16 = build_model(cfg.VOICE2POSE.GENERATOR.NAME, cfg, device="cuda")
@@ -239,7 +330,7 @@ def main() -> None:
           f"{fps:.1f} pose-frames/s", flush=True)
     del model16, model32, out16, out32
 
-    # ---- 6. command line ---------------------------------------------------------
+    # ---- 8. command line ---------------------------------------------------------
     work = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     ckpt, wav_path, out = (os.path.join(work, f) for f in ("sdt_bp.pth", "in.wav", "out.npz"))
@@ -267,12 +358,29 @@ def main() -> None:
     check(cli_rel < 1e-3, f"CLI output differs from in-process serving: rel L2 {cli_rel}")
     print(f"[cli] {r.stdout.strip()}; rel L2 vs in-process {cli_rel:.3e}", flush=True)
 
+    # ---- 9. kernel probes --------------------------------------------------------
+    # the probe entry point resets the launch counts as it starts and reports them
+    # as it ends, in its last line
+    r = subprocess.run([sys.executable, "-m", "speechdrivestemplates_tpu_torch.profile_kernels",
+                        "--conv1-probe", "--shift-probe"],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"profile_kernels rc {r.returncode}:\n{r.stdout}\n{r.stderr}")
+    probe = json.loads(r.stdout.strip().splitlines()[-1])
+    check("conv1_probe" in probe and "shift_probe" in probe, f"probe line: {probe}")
+    for name in ("conv1", "shift_probe"):
+        check(probe["launches"].get(name, 0) > 0,
+              f"the probes launched no {name} kernel: {probe['launches']}")
+    report["shift_probe"]["launches"] = probe["launches"]["shift_probe"]
+    print(f"[probe] profile_kernels rc 0; conv1 probe {probe['conv1_probe']['ms']}, "
+          f"rel diff {probe['conv1_probe']['rel_diff_layer1']:.3e}; shift probe "
+          f"{probe['shift_probe']['ms']}; launches {probe['launches']}", flush=True)
+
     # ---- summary -----------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)
     print(json.dumps({"kernels": [{k: report[n][k] for k in keys}
-                                  for n in ("mel", "stem")]}))
+                                  for n in ("mel", "conv1", "stem", "shift_probe")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

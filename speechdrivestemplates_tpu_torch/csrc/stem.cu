@@ -1,38 +1,41 @@
 // Fused audio-encoder stem for Hopper (sm_90a), plain C interface for ctypes.
 //
 // Replaces the TPU kernel probes/stem_pallas.py (_stem_pallas, body
-// _make_kernel): on conv1's output, IN1 + lrelu, conv2 64->64 k4 s2 p1,
-// IN2 + lrelu, conv3 64->128 k3 s1 p1, IN3 + lrelu. InstanceNorm statistics are
-// fp32, variance E[x^2] - E[x]^2 (biased), eps 1e-5, as in the Pallas kernel.
-// conv1 (1 -> 64, K = 9) stays outside, in PyTorch, as it stayed in XLA.
+// _make_kernel) after its IN1: conv2 64->64 k4 s2 p1, IN2 + lrelu, conv3
+// 64->128 k3 s1 p1, IN3 + lrelu. Its input is conv1's activation, already
+// normalized: csrc/conv1.cu (conv1 + IN1 + lrelu, the port of
+// probes/conv1_pallas.py) writes it as (B, 82, W1, 64) with zero rows 0 and 81.
+// InstanceNorm statistics are fp32, variance E[x^2] - E[x]^2 (biased), eps
+// 1e-5, as in the Pallas kernel.
 //
 // What bounds it on an H100: at B=128, W1=427 the two convolutions are
 // 2 * 1.09M pixels * (64*1024 + 128*576) = 304 GFLOP, ~0.31 ms at the bf16
-// dense tensor-core peak; one pass over its input and output moves 0.84 GB,
-// ~0.25 ms at 3.35 TB/s. So it is near the ridge, and every extra pass over a
-// full-resolution plane costs as much as the arithmetic.
+// dense tensor-core peak; reading its input and writing its output moves
+// 0.84 GB, ~0.25 ms at 3.35 TB/s. So it is near the ridge, and every extra
+// pass over a full-resolution plane costs as much as the arithmetic.
 //
 // Design. The TPU kernel held a whole sample's plane in VMEM; one 80x427x64
 // plane is 4.4 MB in bf16 and a Hopper block has 227 KB, so here blocks tile the
 // planes and each InstanceNorm needs a cross-block reduction:
-//   1. row_stats: per-(sample, row, channel) sum and sum of squares of conv1's
-//      output, then finalize: partials summed in a fixed order (no atomics, so
-//      the result is deterministic) into mean and 1/sqrt(var + eps).
-//   2. conv_in (conv2, then conv3): implicit GEMM, one block of 8 warps per 128
+//   1. conv_in (conv2, then conv3): implicit GEMM, one block of 8 warps per 128
 //      output pixels of one row x all output channels. For each kernel row the
 //      block stages, once, the input row segment its pixels read and that row's
 //      weights (16-byte loads); every tap of the row is then a product of a
 //      shifted view of that segment, so the input is read KH times, not KH*KW.
-//      As it stages the input it applies the previous layer's normalization and
-//      lrelu and casts to the compute dtype; taps that fall outside the plane
-//      read 0 AFTER the normalization (PyTorch pads the activated tensor). bf16
-//      runs on the tensor cores (mma.sync m16n8k16, fp32 accumulation); fp32 runs
-//      on the CUDA cores with the same fragment layout. The raw fp32 output is
-//      written once and the epilogue writes per-block channel sums for the next
-//      norm, reduced over the warps in a fixed order.
+//      conv2 stages conv1's activation as it is; conv3 applies IN2 and lrelu
+//      and casts to the compute dtype as it stages. Taps that fall outside the
+//      plane read 0 AFTER the normalization (PyTorch pads the activated
+//      tensor); conv2 starts one row into conv1.cu's padded plane, so its h
+//      padding is never even read. bf16 runs on the tensor cores (mma.sync
+//      m16n8k16, fp32 accumulation); fp32 runs on the CUDA cores with the same
+//      fragment layout. The raw fp32 output is written once and the epilogue
+//      writes per-block channel sums for the next norm, reduced over the warps
+//      in a fixed order.
+//   2. finalize: partials summed in a fixed order (no atomics, so the result is
+//      deterministic) into mean and 1/sqrt(var + eps).
 //   3. apply: IN3 + lrelu + cast to the compute dtype, four channels a thread.
-// So conv1's output is read twice (stats, conv2), conv2's and conv3's raw fp32
-// outputs once each after being written. No double buffering, TMA or wgmma yet.
+// So conv1's activation is read once, conv2's and conv3's raw fp32 outputs
+// once each after being written. No double buffering, TMA or wgmma yet.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -49,37 +52,7 @@ constexpr float EPS = 1e-5f;
 
 typedef __nv_bfloat16 bf16;
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<bf16>(bf16 v) { return __bfloat162float(v); }
-
 __device__ __forceinline__ float lrelu(float v, float slope) { return v > 0.f ? v : slope * v; }
-
-// Per-(sample, row h, channel) partial sums of an NHWC plane (C1 channels).
-// grid (H, B), 256 threads = 4 lanes x 64 channels.
-template <typename T>
-__global__ void __launch_bounds__(256)
-row_stats_kernel(const T* __restrict__ x, float* __restrict__ psum, float* __restrict__ psq,
-                 int H, int W) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int c = threadIdx.x & (C1 - 1), lane = threadIdx.x >> 6;
-  const T* row = x + ((size_t)b * H + h) * W * C1;
-  float s = 0.f, q = 0.f;
-  for (int w = lane; w < W; w += 4) {
-    const float v = to_f(row[(size_t)w * C1 + c]);
-    s += v;
-    q = fmaf(v, v, q);
-  }
-  __shared__ float rs[4][C1], rq[4][C1];
-  rs[lane][c] = s;
-  rq[lane][c] = q;
-  __syncthreads();
-  if (lane == 0) {
-    const size_t o = ((size_t)b * H + h) * C1 + c;
-    psum[o] = ((rs[0][c] + rs[1][c]) + rs[2][c]) + rs[3][c];
-    psq[o] = ((rq[0][c] + rq[1][c]) + rq[2][c]) + rq[3][c];
-  }
-}
 
 // Sum P partials per (sample, channel) in order; write mean and 1/sqrt(var + eps).
 __global__ void finalize_kernel(const float* __restrict__ psum, const float* __restrict__ psq,
@@ -190,19 +163,21 @@ constexpr int conv_smem_bytes() {
   return (((TM - 1) * S + KW) * Stride<TC, S>::A + KW * COUT * Stride<TC, S>::B) * (int)sizeof(TC);
 }
 
-// y = conv(lrelu(norm(x))) for TM output pixels of row ho of sample b, all COUT
-// channels. For each kernel row dy the block stages, once, the input row segment
-// those pixels read ((TM-1)*S + KW pixels x 64 channels, normalized, activated
-// and cast) and the KW taps' weights; then every tap of that row is a product of
-// shifted views of the staged segment with the staged weights.
-// x: (B, Hin, Win, C1) raw previous-layer output; wt: (KH, KW, COUT, C1) in TC;
-// y: (B, Hout, Wout, COUT) fp32 raw; psum/psq: (B, Hout * gridDim.x, COUT).
-template <typename TIn, typename TC, int KH, int KW, int S, int P, int COUT>
+// y = conv(lrelu(norm(x))) (NORM) or conv(x) for TM output pixels of row ho of
+// sample b, all COUT channels. For each kernel row dy the block stages, once, the
+// input row segment those pixels read ((TM-1)*S + KW pixels x 64 channels,
+// normalized and activated if NORM, cast) and the KW taps' weights; then every
+// tap of that row is a product of shifted views of the staged segment with the
+// staged weights.
+// x: (B, x_rows, Win, C1), the Hin input rows of a sample starting at x (NORM:
+// the raw previous-layer output, else an activation); wt: (KH, KW, COUT, C1) in
+// TC; y: (B, Hout, Wout, COUT) fp32 raw; psum/psq: (B, Hout * gridDim.x, COUT).
+template <bool NORM, typename TIn, typename TC, int KH, int KW, int S, int P, int COUT>
 __global__ void __launch_bounds__(CONV_THREADS, 2)
 conv_in_kernel(const TIn* __restrict__ x, const float* __restrict__ mean,
                const float* __restrict__ rstd, const TC* __restrict__ wt,
                float* __restrict__ y, float* __restrict__ psum, float* __restrict__ psq,
-               int Hin, int Win, int Hout, int Wout, float slope) {
+               int Hin, int x_rows, int Win, int Hout, int Wout, float slope) {
   constexpr int NT = COUT / 8;
   constexpr int WARPS = CONV_THREADS / 32;
   constexpr int AROWS = (TM - 1) * S + KW;
@@ -219,7 +194,7 @@ conv_in_kernel(const TIn* __restrict__ x, const float* __restrict__ mean,
 
   const int w0 = blockIdx.x * TM, ho = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
-  if (tid < C1) {
+  if (NORM && tid < C1) {
     s_mean[tid] = mean[b * C1 + tid];
     s_rstd[tid] = rstd[b * C1 + tid];
   }
@@ -232,15 +207,17 @@ conv_in_kernel(const TIn* __restrict__ x, const float* __restrict__ mean,
     const int hi = ho * S - P + dy;
     __syncthreads();  // the previous row's tiles are consumed; s_mean/s_rstd visible
     if (hi < 0 || hi >= Hin) continue;  // a row of padding contributes nothing
-    const TIn* xrow = x + ((size_t)b * Hin + hi) * Win * C1;
+    const TIn* xrow = x + ((size_t)b * x_rows + hi) * Win * C1;
     for (int i = tid; i < AROWS * (C1 / 8); i += CONV_THREADS) {
       const int r = i / (C1 / 8), c = (i % (C1 / 8)) * 8;
       const int wi = wbase + r;
       float v[8];
       if (wi >= 0 && wi < Win) {
         load8(xrow + (size_t)wi * C1 + c, v);
+        if constexpr (NORM) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = lrelu((v[e] - s_mean[c + e]) * s_rstd[c + e], slope);
+          for (int e = 0; e < 8; ++e) v[e] = lrelu((v[e] - s_mean[c + e]) * s_rstd[c + e], slope);
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = 0.f;  // padding reads 0 after the norm
@@ -307,12 +284,12 @@ conv_in_kernel(const TIn* __restrict__ x, const float* __restrict__ mean,
   }
 }
 
-template <typename TIn, typename TC, int KH, int KW, int S, int P, int COUT>
+template <bool NORM, typename TIn, typename TC, int KH, int KW, int S, int P, int COUT>
 cudaError_t launch_conv(const TIn* x, const float* mean, const float* rstd, const TC* wt, float* y,
-                        float* psum, float* psq, int B, int Hin, int Win, int Hout, int Wout,
-                        float slope, cudaStream_t st) {
+                        float* psum, float* psq, int B, int Hin, int x_rows, int Win, int Hout,
+                        int Wout, float slope, cudaStream_t st) {
   constexpr int smem = conv_smem_bytes<TC, KW, S, COUT>();
-  auto kernel = conv_in_kernel<TIn, TC, KH, KW, S, P, COUT>;
+  auto kernel = conv_in_kernel<NORM, TIn, TC, KH, KW, S, P, COUT>;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     const cudaError_t e =
@@ -321,8 +298,8 @@ cudaError_t launch_conv(const TIn* x, const float* mean, const float* rstd, cons
     configured = true;
   }
   const dim3 grid((Wout + TM - 1) / TM, Hout, B);
-  kernel<<<grid, CONV_THREADS, smem, st>>>(x, mean, rstd, wt, y, psum, psq, Hin, Win, Hout, Wout,
-                                           slope);
+  kernel<<<grid, CONV_THREADS, smem, st>>>(x, mean, rstd, wt, y, psum, psq, Hin, x_rows, Win, Hout,
+                                           Wout, slope);
   return cudaGetLastError();
 }
 
@@ -370,21 +347,17 @@ cudaError_t stem_forward(const T* y1, const T* w2, const T* w3, T* out, float* y
 #define SDT_CHECK(expr)                               \
   if ((e = (expr)) != cudaSuccess) return e
 
-  // IN1 statistics over conv1's output (B, 80, W1, 64)
-  row_stats_kernel<T><<<dim3(H1, B), 256, 0, st>>>(y1, psum, psq, H1, W1);
-  SDT_CHECK(cudaGetLastError());
-  finalize_kernel<<<(B * C1 + 255) / 256, 256, 0, st>>>(psum, psq, mean, rstd, B, H1, C1,
-                                                        (float)H1 * W1);
-  SDT_CHECK(cudaGetLastError());
-  // conv2 on lrelu(IN1(y1)) -> y2 raw, IN2 partials
-  SDT_CHECK((launch_conv<T, T, 4, 4, 2, 1, C1>(y1, mean, rstd, w2, y2, psum, psq, B, H1, W1, H2,
-                                               W2, slope, st)));
+  // conv2 on conv1's activation -> y2 raw, IN2 partials. It reads the 80 data
+  // rows of the padded plane (one row in); its h padding is skipped, not read.
+  SDT_CHECK((launch_conv<false, T, T, 4, 4, 2, 1, C1>(y1 + (size_t)W1 * C1, nullptr, nullptr, w2,
+                                                      y2, psum, psq, B, H1, H1 + 2, W1, H2, W2,
+                                                      slope, st)));
   finalize_kernel<<<(B * C1 + 255) / 256, 256, 0, st>>>(psum, psq, mean, rstd, B, H2 * n_wt,
                                                         C1, (float)H2 * W2);
   SDT_CHECK(cudaGetLastError());
   // conv3 on lrelu(IN2(y2)) -> y3 raw, IN3 partials
-  SDT_CHECK((launch_conv<float, T, 3, 3, 1, 1, C3>(y2, mean, rstd, w3, y3, psum, psq, B, H2, W2,
-                                                   H2, W2, slope, st)));
+  SDT_CHECK((launch_conv<true, float, T, 3, 3, 1, 1, C3>(y2, mean, rstd, w3, y3, psum, psq, B, H2,
+                                                         H2, W2, H2, W2, slope, st)));
   finalize_kernel<<<(B * C3 + 255) / 256, 256, 0, st>>>(psum, psq, mean, rstd, B, H2 * n_wt,
                                                         C3, (float)H2 * W2);
   SDT_CHECK(cudaGetLastError());
@@ -399,12 +372,13 @@ cudaError_t stem_forward(const T* y1, const T* w2, const T* w3, T* out, float* y
 
 }  // namespace
 
-// y1:  (B, 80, W1, 64) conv1 output, channels last, bf16 if is_bf16 else fp32
+// y1:  (B, 82, W1, 64) conv1's activation from conv1.cu, rows 0 and 81 zero,
+//      channels last, bf16 if is_bf16 else fp32
 // w2:  (4, 4, 64, 64) conv2 weight as (kh, kw, C_out, C_in), same dtype
 // w3:  (3, 3, 128, 64) conv3 weight as (kh, kw, C_out, C_in), same dtype
 // out: (B, 40, W2, 128) same dtype, W2 = (W1 - 2) / 2 + 1
 // scratch (fp32): y2 (B, 40, W2, 64), y3 (B, 40, W2, 128),
-//   psum/psq each B * max(80 * 64, 40 * ceil(W2 / 128) * 128), mean/rstd each B * 128
+//   psum/psq each B * 40 * ceil(W2 / 128) * 128, mean/rstd each B * 128
 extern "C" int sdt_stem_forward(const void* y1, int is_bf16, const void* w2, const void* w3,
                                 void* out, float* y2, float* y3, float* psum, float* psq,
                                 float* mean, float* rstd, int B, int W1, float slope,

@@ -4,9 +4,10 @@
     conv2 64->64 k4 s2 p1, IN2, lrelu
     conv3 64->128 k3 s1 p1, IN3, lrelu
 
-``audio_encoder_stem`` is the entry: on a CUDA tensor it runs conv1 in
-PyTorch and the rest in the fused CUDA kernel (``csrc/stem.cu``), and raises
-if it cannot; on a CPU tensor it runs ``stem_plain``, the port's own three
+``audio_encoder_stem`` is the entry: on a CUDA tensor it runs conv1 + IN1 in
+the fused conv1 kernel (``ops/conv1.py``, ``csrc/conv1.cu``) and the rest, the
+stem's tail, in the fused stem kernel (``csrc/stem.cu``), and raises if it
+cannot; on a CPU tensor it runs ``stem_plain``, the port's own three
 ConvNormRelu layers. Both return the JAX package's layout, (B, 40, W2, 128)
 with W2 = (W1 - 2) // 2 + 1, in the compute dtype.
 """
@@ -17,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from ..models.blocks import conv_norm_relu_2d
+from ..models.blocks import conv_norm_relu_2d, instance_norm_2d
+from . import conv1 as conv1_ops
 
 H1 = 80      # mel bins = conv1's output height
 C1 = 64      # conv1 / conv2 channels
@@ -41,39 +43,44 @@ def stem_plain(mel: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     return x.permute(0, 2, 3, 1)
 
 
-def stem_kernel(mel: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-                w3: torch.Tensor, slope: float = 0.2,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """conv1 (PyTorch) + [IN1, conv2, IN2, conv3, IN3] (CUDA kernel)."""
-    dev = mel.device
+def stem_tail_plain(y1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor,
+                    slope: float = 0.2, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """conv2 + IN2 + conv3 + IN3 on conv1's h-padded activation (B, 82, W1, 64)
+    from ``fused_conv1_in`` -> (B, 40, W2, 128): conv2 with padding (0, 1)."""
+    x = y1.permute(0, 3, 1, 2)
+    x = F.conv2d(x.to(dtype), w2.to(dtype), stride=2, padding=(0, 1))
+    x = F.leaky_relu(instance_norm_2d(x), slope).to(dtype)
+    return conv_norm_relu_2d(x, w3, 1, 1, slope, dtype).permute(0, 2, 3, 1)
+
+
+def stem_tail_kernel(y1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor,
+                     slope: float = 0.2, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[conv2, IN2, conv3, IN3] (the fused stem kernel) on conv1's padded
+    activation; same contract as ``stem_tail_plain``."""
+    dev = y1.device
     if dev.type != "cuda":
         raise ValueError("stem kernel takes CUDA tensors")
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"stem kernel computes in float32 or bfloat16, not {dtype}")
-    if mel.ndim != 3 or mel.shape[1] != H1:
-        raise ValueError(f"expected mel (B, {H1}, W1), got {tuple(mel.shape)}")
-    B, _, W1 = mel.shape
+    rows = conv1_ops.ROWS
+    if y1.ndim != 4 or y1.shape[1] != rows or y1.shape[3] != C1 or y1.dtype != dtype:
+        raise ValueError(f"expected a {dtype} activation (B, {rows}, W1, {C1}), got "
+                         f"{y1.dtype} {tuple(y1.shape)}")
+    B, _, W1, _ = y1.shape
     if W1 < 2:
         raise ValueError(f"mel width {W1} is too short for the stem")
-    for w, shape in ((w1, (C1, 1, 3, 3)), (w2, (C1, C1, 4, 4)), (w3, (C3, C1, 3, 3))):
+    for w, shape in ((w2, (C1, C1, 4, 4)), (w3, (C3, C1, 3, 3))):
         if tuple(w.shape) != shape or w.device != dev:
             raise ValueError(f"stem weight {tuple(w.shape)} on {w.device}: "
                              f"expected {shape} on {dev}")
     H2, W2 = stem_dims(W1)
-
-    # conv1 stays outside the kernel, as in the JAX design; channels-last output
-    cl = torch.channels_last
-    y1 = F.conv2d(mel[:, None].to(dtype), w1.to(dtype).contiguous(memory_format=cl),
-                  padding=1)
-    y1 = y1.contiguous(memory_format=cl).permute(0, 2, 3, 1)  # (B, 80, W1, 64)
+    y1 = y1.contiguous()
     # conv weights as (kh, kw, C_out, C_in) in the compute dtype
     w2t = w2.to(dtype).permute(2, 3, 0, 1).contiguous()
     w3t = w3.to(dtype).permute(2, 3, 0, 1).contiguous()
-    assert y1.is_contiguous()
 
     f32 = dict(dtype=torch.float32, device=dev)
-    n_wt = -(-W2 // CONV_TILE)
-    parts = B * max(H1 * C1, H2 * n_wt * C3)
+    parts = B * H2 * -(-W2 // CONV_TILE) * C3
     y2 = torch.empty((B, H2, W2, C1), **f32)
     y3 = torch.empty((B, H2, W2, C3), **f32)
     psum, psq = torch.empty(parts, **f32), torch.empty(parts, **f32)
@@ -89,6 +96,14 @@ def stem_kernel(mel: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     kernels.LAUNCHES["stem"] += 1
     kernels.check(err, "sdt_stem_forward")
     return out
+
+
+def stem_kernel(mel: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                w3: torch.Tensor, slope: float = 0.2,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The fused conv1 kernel, then the fused stem kernel: no PyTorch op between."""
+    y1 = conv1_ops.conv1_in_kernel(mel, w1, slope, dtype)
+    return stem_tail_kernel(y1, w2, w3, slope, dtype)
 
 
 def audio_encoder_stem(mel: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,

@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 
 import numpy as np
 import torch
@@ -21,6 +20,7 @@ from .config import sdt_bp
 from .models import build_model
 from .serving import build_serving_fn
 from .utils.device import resolve_device
+from .utils.timing import card, cuda_ms
 
 
 def main(argv=None) -> None:
@@ -39,16 +39,7 @@ def main(argv=None) -> None:
     audio = torch.from_numpy((rng.randn(args.batch, cfg.DATASET.AUDIO_LENGTH) * 0.1)
                              .astype(np.float32)).to(dev)
     code = torch.from_numpy(rng.randn(args.batch, 32).astype(np.float32)).to(dev)
-    for _ in range(3):
-        fn(audio, code)
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(args.iters):
-        fn(audio, code)
-    stop.record()
-    torch.cuda.synchronize()
-    forward_ms = start.elapsed_time(stop) / args.iters
+    forward_ms = cuda_ms(fn, [(audio, code)], args.iters)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(args.iters):
@@ -63,11 +54,8 @@ def main(argv=None) -> None:
             rows.append((e.key, t / 1e3 / args.iters, e.count // args.iters))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
     print(json.dumps({
-        "card": card, "batch": args.batch, "forward_ms": forward_ms,
+        "card": card(), "batch": args.batch, "forward_ms": forward_ms,
         "pose_frames_per_s": args.batch * cfg.DATASET.NUM_FRAMES / forward_ms * 1e3,
         "device_busy_ms": busy, "idle_share": max(0.0, 1 - busy / forward_ms),
         "kernels": [{"name": k[:90], "ms": round(ms, 4), "calls": n}

@@ -65,3 +65,54 @@ def test_stem_kernel_bf16_within_quantile_gate(cuda):
     assert got.dtype == torch.bfloat16
     err = (got.float() - S.stem_plain(mel, *w, dtype=torch.float32)).abs()
     assert torch.quantile(err.flatten()[:4_000_000], 0.99) < 0.05 and err.mean() < 0.02
+
+
+@pytest.mark.parametrize("width", [2, 3, 37, 427, 428])
+@pytest.mark.parametrize("slope", [0.2, 0.0])
+def test_conv1_kernel_matches_plain(cuda, width, slope):
+    from speechdrivestemplates_tpu_torch.ops import conv1 as C1
+
+    rng = np.random.RandomState(width)
+    mel = _randn(rng, 2, 80, width)
+    w1 = _randn(rng, 64, 1, 3, 3, scale=0.2)
+    ref = C1.conv1_in_plain(mel, w1, slope, torch.float32)
+    got = C1.fused_conv1_in(mel, w1, slope, torch.float32)
+    assert got.shape == ref.shape == (2, C1.ROWS, width, 64)
+    assert not got[:, 0].any() and not got[:, -1].any()
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
+    got16 = C1.fused_conv1_in(mel, w1, slope, torch.bfloat16)
+    assert got16.dtype == torch.bfloat16
+    assert not got16[:, 0].any() and not got16[:, -1].any()
+    assert ((got16.float() - ref).abs().mean() / ref.abs().mean()) < 2e-2
+
+
+@pytest.mark.parametrize("mode", ["aligned", "subtile"])
+@pytest.mark.parametrize("c, m, m_out", [(128, 4480, 4032), (64, 300, 250), (128, 137, 129)])
+def test_shift_probe_kernel_matches_plain(cuda, mode, c, m, m_out):
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.ops import shift_probe as SP
+
+    rng = np.random.RandomState(c + m)
+    x = _randn(rng, 3, m, c, scale=0.1).to(torch.bfloat16)
+    w = _randn(rng, 9, c, c, scale=0.05).to(torch.bfloat16)
+    before = kernels.LAUNCHES["shift_probe"]
+    got = SP.shift_taps(x, w, m_out, mode)
+    assert kernels.LAUNCHES["shift_probe"] == before + 1
+    ref = SP.shift_taps_plain(x, w, m_out, mode)
+    assert got.shape == ref.shape == (3, m_out, c) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ref.float(), rtol=1e-2, atol=1e-3)
+
+
+def test_stem_launches_conv1_then_stem_once_each(cuda):
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.ops import stem as S
+
+    rng = np.random.RandomState(2)
+    mel = _randn(rng, 2, 80, 64)
+    w = (_randn(rng, 64, 1, 3, 3, scale=0.2), _randn(rng, 64, 64, 4, 4, scale=0.05),
+         _randn(rng, 128, 64, 3, 3, scale=0.05))
+    for i in range(1, 3):
+        before = dict(kernels.LAUNCHES)
+        S.audio_encoder_stem(mel, *w, dtype=torch.bfloat16)
+        for name in ("conv1", "stem"):
+            assert kernels.LAUNCHES[name] == before.get(name, 0) + 1, (i, name)

@@ -41,7 +41,8 @@ def test_port_and_chip_smoke_import_no_jax_nor_jax_package():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import speechdrivestemplates_tpu_torch.serving, "
-            "speechdrivestemplates_tpu_torch.ops.stem; "
+            "speechdrivestemplates_tpu_torch.ops.stem, "
+            "speechdrivestemplates_tpu_torch.profile_kernels; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -53,7 +54,7 @@ def test_importing_the_port_loads_no_jax():
 def test_entry_points_need_cuda_unless_cpu_is_asked_for(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry points run on it")
-    from speechdrivestemplates_tpu_torch import serving
+    from speechdrivestemplates_tpu_torch import profile_kernels, serving
     from speechdrivestemplates_tpu_torch.config import sdt_bp
     from speechdrivestemplates_tpu_torch.models import build_model
 
@@ -66,6 +67,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serving.main([str(tmp_path / "x.pth"), str(tmp_path / "x.wav"),
                       str(tmp_path / "x.npz")])
+    for probe in ([], ["--conv1-probe"], ["--shift-probe", "--probe-c", "64"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            profile_kernels.main(probe)
 
 
 def test_cpu_serving_launches_no_kernel(rng):
