@@ -6,12 +6,15 @@
 Phases, each of which must pass or the script exits non-zero:
   1. device   a CUDA device is present; its name and power limit are printed
   2. build    the CUDA kernels compile from speechdrivestemplates_tpu_torch/csrc
-  3. mel      the fused STFT+mel kernel vs its plain PyTorch version at (128, 68267)
+  3. mel      the fused STFT+mel kernel vs its plain PyTorch version at (128, 68267), on
+              a normal input and on one with 60 dB between its loud and quiet halves,
+              whose quiet frames are also held relatively
   4. conv1    the fused conv1+IN1 kernel vs its plain version at (128, 80, 427): fp32
               at rtol/atol 2e-5, zero rows 0 and 81, bf16 within 2e-2 mean relative error
   5. stem     the stem (conv1 kernel, then the fused stem kernel) vs its plain version at
               (128, 80, 427), in fp32 (tight tolerance) and in bf16 (the serving dtype);
-              the stem kernel alone vs its plain version on the same activation
+              the stem kernel alone vs its plain version on one activation, its fp32
+              path at the tight tolerance and its bf16 path against the plain bf16 tail
   6. shift    the tap-shift probe kernel, aligned and subtile, vs its plain version at
               (128, 4480, 128) x (9, 128, 128), within one bf16 rounding
   7. serve    SDT-BP, bf16, full width, seeded weights: three requests (B = 1, 16, 128)
@@ -107,13 +110,29 @@ def main() -> None:
     B, L = 128, 68267
     T = L // 160 + 1
     audios = [dev_randn(B, L, scale=0.1) for _ in range(3)]
-    k = M.mel_spectrogram_kernel(audios[0])
-    p = M.mel_spectrogram_plain(audios[0])
-    torch.cuda.synchronize()
-    check(k.shape == p.shape == (B, 80, T), f"mel shape {tuple(k.shape)}")
-    mel_err = (k - p).abs().max().item()
-    check(torch.allclose(k, p, rtol=1e-3, atol=1e-4),
-          f"mel kernel vs plain: max abs err {mel_err}")
+    # the kernel's three-pass bf16 split keeps ~2^-16 relative: the gate of
+    # tests/test_mel_pallas.py, also across a 60 dB step inside one clip
+    wide = audios[0].clone()
+    wide[:, L // 2:] *= 1e-3
+    # the quiet half's mel values sit far below atol, so the frames whose window
+    # (samples 160 t - 200 .. 160 t + 199) lies wholly inside it are also held
+    # relatively, on the bins above 1e-3 of their largest
+    t_quiet = -(-(L // 2 + 200) // 160)
+    mel_err = 0.0
+    for name, a in (("normal", audios[0]), ("60 dB", wide)):
+        k = M.mel_spectrogram_kernel(a)
+        p = M.mel_spectrogram_plain(a)
+        torch.cuda.synchronize()
+        check(k.shape == p.shape == (B, 80, T), f"mel shape {tuple(k.shape)}")
+        err = (k - p).abs().max().item()
+        check(torch.allclose(k, p, rtol=1e-3, atol=1e-4),
+              f"mel kernel vs plain ({name} input): max abs err {err}")
+        mel_err = max(mel_err, err)
+    q = p[..., t_quiet:]
+    sel = q > 1e-3 * q.max()
+    quiet_rel = ((k[..., t_quiet:] - q).abs()[sel] / q[sel]).max().item()
+    check(quiet_rel <= 1e-3, f"mel kernel vs plain on the quiet half: max rel err {quiet_rel}")
+    del wide, k, p, q, sel
     fb = torch.from_numpy(M._mel_filterbank_np(16000, 512, 80, 55.0, 7500.0)).to(dev)
     hann = torch.hann_window(400, periodic=True, device=dev)
 
@@ -122,11 +141,14 @@ def main() -> None:
                           return_complex=True)
         return fb.T @ (spec.real ** 2 + spec.imag ** 2)
 
-    check(torch.allclose(mel_library(audios[0]), p, rtol=1e-3, atol=1e-4),
+    check(torch.allclose(mel_library(audios[0]), M.mel_spectrogram_plain(audios[0]),
+                         rtol=1e-3, atol=1e-4),
           "torch.stft yardstick disagrees with the plain mel")
+    # the DFT (400 taps x 512 columns) and the mel projection (256 x 80) on the
+    # tensor cores, three bf16 passes each
     n_frames = B * T
     mel_b, mel_by = bound_ms(4.0 * (B * L + B * 80 * T),
-                             2.0 * n_frames * (400 * 512 + 256 * 80), "fp32")
+                             3 * 2.0 * n_frames * (400 * 512 + 256 * 80), "bf16")
     report["mel"] = dict(
         name="mel_stft_fused", route="cuda",
         source="speechdrivestemplates_tpu_torch/csrc/mel.cu",
@@ -136,7 +158,9 @@ def main() -> None:
         plain_ms=cuda_ms(M.mel_spectrogram_plain, [(a,) for a in audios]),
         bound_ms=mel_b, bound_by=mel_by,
         library_ms=cuda_ms(mel_library, [(a,) for a in audios]))
-    print(f"[mel] (128, 68267) max abs err {mel_err:.3e} (rtol 1e-3, atol 1e-4); "
+    print(f"[mel] (128, 68267) normal and 60 dB inputs: max abs err {mel_err:.3e} "
+          f"(rtol 1e-3, atol 1e-4); quiet half of the 60 dB input (frames {t_quiet}-{T - 1}): "
+          f"max rel err {quiet_rel:.3e} (rtol 1e-3); "
           f"kernel {report['mel']['ms']:.4f} ms, plain {report['mel']['plain_ms']:.4f} ms, "
           f"torch.stft {report['mel']['library_ms']:.4f} ms, bound {mel_b:.4f} ms "
           f"({mel_by})", flush=True)
@@ -203,16 +227,32 @@ def main() -> None:
     check(q99 < 0.05 and err16.mean().item() < 0.02,
           f"stem bf16 kernels vs fp32 plain: p99 {q99}, mean {err16.mean().item()}")
     del ref32, k32, k16, err16
-    # the stem kernel alone, on one conv1 activation
+    # the stem kernel alone, on one conv1 activation: first its fp32 path (the
+    # CUDA-core kernel, kept for the tight gate), then the served bf16 path
+    # (wgmma, bf16 y2 and y3) against the plain tail in bf16
     y1 = C1.conv1_in_plain(mels[0], w1, 0.2, torch.float32)
     t32 = S.stem_tail_kernel(y1, w2, w3, 0.2, torch.float32)
     tref = S.stem_tail_plain(y1, w2, w3, 0.2, torch.float32)
     torch.cuda.synchronize()
-    stem_err = (t32 - tref).abs().max().item()
+    fp32_err = (t32 - tref).abs().max().item()
     check(torch.allclose(t32, tref, rtol=2e-4, atol=2e-5),
-          f"stem kernel fp32 vs plain on one activation: max abs err {stem_err}")
+          f"stem kernel fp32 path vs plain on one activation: max abs err {fp32_err}")
     del y1, t32, tref
     y1s = [C1.conv1_in_kernel(m, w1, 0.2, bf) for m in mels]
+    t16 = S.stem_tail_kernel(y1s[0], w2, w3, 0.2, bf)
+    tref = S.stem_tail_plain(y1s[0], w2, w3, 0.2, bf)
+    torch.cuda.synchronize()
+    check(t16.shape == tref.shape == (B, H2, W2, 128) and t16.dtype == bf,
+          f"stem kernel bf16 shape {tuple(t16.shape)} {t16.dtype}")
+    e16 = (t16.float() - tref.float()).abs().flatten()
+    stem_err = e16.max().item()
+    tail_q99 = torch.quantile(e16[:: max(1, e16.numel() // 4_000_000)], 0.99).item()
+    # bf16 roundings of y2, y3 and the output in another order: a few bf16 ulps of
+    # the O(1) post-norm values at most (one ulp is 2^-5 at 4)
+    check(tail_q99 < 0.05 and e16.mean().item() < 0.02 and stem_err < 0.1,
+          f"stem kernel bf16 vs plain bf16 on one activation: p99 {tail_q99}, "
+          f"mean {e16.mean().item()}, max abs err {stem_err}")
+    del t16, tref, e16
     w2b, w3b = w2.to(bf), w3.to(bf)
 
     def stem_library(y1):
@@ -238,8 +278,10 @@ def main() -> None:
         library_ms=cuda_ms(stem_library, [(y,) for y in y1s], 10))
     whole_ms = cuda_ms(S.stem_kernel, [(m, w1, w2, w3, 0.2, bf) for m in mels], 10)
     print(f"[stem] (128, 80, {W1}) conv1+stem kernels fp32 max abs err {whole_err:.3e} "
-          f"(rtol 2e-4, atol 2e-5), bf16 vs fp32 p99 {q99:.4f} (< 0.05); stem kernel alone "
-          f"fp32 max abs err {stem_err:.3e}; bf16 stem kernel {report['stem']['ms']:.4f} ms, "
+          f"(rtol 2e-4, atol 2e-5), bf16 vs fp32 p99 {q99:.4f} (< 0.05); stem kernel alone: "
+          f"fp32 path (CUDA cores) max abs err {fp32_err:.3e} (rtol 2e-4, atol 2e-5), bf16 "
+          f"path (wgmma) vs plain bf16 max abs err {stem_err:.3e} (< 0.1), p99 {tail_q99:.4f} "
+          f"(< 0.05); bf16 stem kernel {report['stem']['ms']:.4f} ms, "
           f"plain {report['stem']['plain_ms']:.4f} ms, cuDNN {report['stem']['library_ms']:.4f} "
           f"ms, bound {stem_b:.4f} ms ({stem_by}); whole stem (conv1 + stem kernels) "
           f"{whole_ms:.4f} ms", flush=True)

@@ -4,10 +4,11 @@ uses it: periodic Hann(400) zero-padded to 512, center=True with reflect
 padding, power spectrum, HTK mel filterbank without normalization.
 
 ``mel_spectrogram`` is the entry: on a CUDA tensor it launches the fused
-STFT+mel kernel (``csrc/mel.cu``) and raises if it cannot; on a CPU tensor it
-runs ``mel_spectrogram_plain``, the same function in plain PyTorch (the JAX
-package's ``impl='dft'`` path: framing, two real-DFT matmuls, power, mel
-matmul).
+STFT+mel kernel (``csrc/mel.cu``: the DFT and the mel projection on the tensor
+cores as three bf16 passes, hi*hi + hi*lo + lo*hi, reflect padding by index)
+and raises if it cannot; on a CPU tensor it runs ``mel_spectrogram_plain``, the
+same function in plain PyTorch (the JAX package's ``impl='dft'`` path:
+framing, two real-DFT matmuls, power, mel matmul).
 """
 
 from __future__ import annotations
@@ -100,10 +101,18 @@ def _kernel_tables_np():
     return cs.astype(np.float32), np.ascontiguousarray(fb[:K_USED])
 
 
+def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 -> (hi, lo) bf16 with hi = bf16(x), lo = bf16(x - hi), both rounded
+    to nearest even: hi + lo carries x to about 2^-16 relative."""
+    hi = x.float().to(torch.bfloat16)
+    return hi, (x.float() - hi.float()).to(torch.bfloat16)
+
+
 @functools.lru_cache(maxsize=8)
 def _kernel_tables(device: torch.device):
-    cs, fb = _kernel_tables_np()
-    return torch.from_numpy(cs).to(device), torch.from_numpy(fb).to(device)
+    """The kernel's constant operands split once: (cs_hi, cs_lo, fb_hi, fb_lo)."""
+    cs, fb = (torch.from_numpy(a) for a in _kernel_tables_np())
+    return tuple(t.contiguous().to(device) for t in (*split_bf16(cs), *split_bf16(fb)))
 
 
 def mel_spectrogram_plain(audio: torch.Tensor) -> torch.Tensor:
@@ -134,17 +143,14 @@ def mel_spectrogram_kernel(audio: torch.Tensor) -> torch.Tensor:
     lead, L = audio.shape[:-1], audio.shape[-1]
     if L <= N_FFT // 2:
         raise ValueError(f"audio of {L} samples is too short for reflect padding")
-    x = audio.reshape(-1, 1, L)
+    x = audio.reshape(-1, L).contiguous()  # unpadded: the kernel mirrors by index
     B = x.shape[0]
-    pad = N_FFT // 2
-    xp = F.pad(x, (pad, pad), mode="reflect")[:, 0].contiguous()  # (B, L + 512)
     T = L // HOP_LENGTH + 1
-    cs, fb = _kernel_tables(audio.device)
+    tables = _kernel_tables(audio.device)
     out = torch.empty((B, N_MELS, T), dtype=torch.float32, device=audio.device)
     lib = kernels.library("mel")
-    err = lib.sdt_mel_forward(xp.data_ptr(), cs.data_ptr(), fb.data_ptr(),
-                              out.data_ptr(), B, xp.shape[1], T,
-                              kernels.current_stream(audio.device))
+    err = lib.sdt_mel_forward(x.data_ptr(), *(t.data_ptr() for t in tables),
+                              out.data_ptr(), B, L, T, kernels.current_stream(audio.device))
     kernels.LAUNCHES["mel"] += 1
     kernels.check(err, "sdt_mel_forward")
     return out.reshape(*lead, N_MELS, T)

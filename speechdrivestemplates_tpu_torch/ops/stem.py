@@ -24,7 +24,7 @@ from . import conv1 as conv1_ops
 H1 = 80      # mel bins = conv1's output height
 C1 = 64      # conv1 / conv2 channels
 C3 = 128     # conv3 channels
-CONV_TILE = 128  # output pixels per block of the kernel's conv (csrc/stem.cu: TM)
+CONV_TILE = 128  # output pixels per tile of the kernel's convs (csrc/stem.cu: TM)
 
 
 def stem_dims(w1: int) -> tuple[int, int]:
@@ -80,9 +80,10 @@ def stem_tail_kernel(y1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor,
     w3t = w3.to(dtype).permute(2, 3, 0, 1).contiguous()
 
     f32 = dict(dtype=torch.float32, device=dev)
-    parts = B * H2 * -(-W2 // CONV_TILE) * C3
-    y2 = torch.empty((B, H2, W2, C1), **f32)
-    y3 = torch.empty((B, H2, W2, C3), **f32)
+    parts = B * H2 * -(-W2 // CONV_TILE) * 2 * C3  # per tile and warpgroup (bf16)
+    # conv2's and conv3's raw outputs, in the compute dtype
+    y2 = torch.empty((B, H2, W2, C1), dtype=dtype, device=dev)
+    y3 = torch.empty((B, H2, W2, C3), dtype=dtype, device=dev)
     psum, psq = torch.empty(parts, **f32), torch.empty(parts, **f32)
     mean, rstd = torch.empty(B * C3, **f32), torch.empty(B * C3, **f32)
     out = torch.empty((B, H2, W2, C3), dtype=dtype, device=dev)

@@ -26,17 +26,32 @@ def _randn(rng, *shape, scale=1.0, device="cuda"):
     return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(device)
 
 
-@pytest.mark.parametrize("shape", [(1, 300), (3, 16000), (5, 68267)])
-def test_mel_kernel_matches_plain(cuda, shape):
+# tiles of up to 128 frames run over the flattened (b, t) axis: at T = 2 (L = 257,
+# 300) a tile spans many samples, at T = 101 and 427 the batches below make tiles
+# cross sample boundaries
+@pytest.mark.parametrize("dynamic_range_db", [0, 60])
+@pytest.mark.parametrize("shape", [(1, 257), (7, 257), (1, 300), (3, 300), (3, 16000),
+                                   (9, 16000), (5, 68267), (2, 68267)])
+def test_mel_kernel_matches_plain(cuda, shape, dynamic_range_db):
     from speechdrivestemplates_tpu_torch import kernels
     from speechdrivestemplates_tpu_torch.ops import mel as M
 
     audio = _randn(np.random.RandomState(0), *shape, scale=0.1)
+    if dynamic_range_db:  # a loud and a quiet half, 60 dB apart in power
+        audio[:, shape[1] // 2:] *= 10.0 ** (-dynamic_range_db / 20.0)
     before = kernels.LAUNCHES["mel"]
     got = M.mel_spectrogram(audio)
     assert kernels.LAUNCHES["mel"] == before + 1
     ref = M.mel_spectrogram_plain(audio)
     torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-4)
+    # the quiet half sits far below atol: hold the frames whose window (samples
+    # 160 t - 200 .. 160 t + 199) lies wholly inside it relatively, on the bins
+    # above 1e-3 of their largest (there are none at L = 257, 300)
+    t_quiet = -(-(shape[1] // 2 + 200) // M.HOP_LENGTH)
+    q = ref[..., t_quiet:]
+    if dynamic_range_db and q.numel():
+        sel = q > 1e-3 * q.max()
+        torch.testing.assert_close(got[..., t_quiet:][sel], q[sel], rtol=1e-3, atol=0.0)
 
 
 @pytest.mark.parametrize("width", [2, 35, 36, 130, 427, 428])
@@ -52,6 +67,28 @@ def test_stem_kernel_fp32_matches_plain(cuda, width, slope):
     ref = S.stem_plain(mel, *w, slope=slope, dtype=torch.float32)
     assert got.shape == ref.shape == (2, 40, S.stem_dims(width)[1], 128)
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("width", [2, 35, 213, 427, 428])
+def test_stem_tail_kernel_bf16_matches_plain_bf16(cuda, width):
+    """B2 alone in bf16 (bf16 y2 and y3 inside) against the plain tail in bf16,
+    on one bf16 conv1 activation; the bf16 quantile gate and a few bf16 ulps of
+    the O(1) post-norm values at most."""
+    from speechdrivestemplates_tpu_torch.ops import conv1 as C1
+    from speechdrivestemplates_tpu_torch.ops import stem as S
+
+    rng = np.random.RandomState(width)
+    mel = _randn(rng, 3, 80, width)
+    w1, w2, w3 = (_randn(rng, 64, 1, 3, 3, scale=0.2), _randn(rng, 64, 64, 4, 4, scale=0.05),
+                  _randn(rng, 128, 64, 3, 3, scale=0.05))
+    y1 = C1.conv1_in_plain(mel, w1, 0.2, torch.bfloat16)
+    got = S.stem_tail_kernel(y1, w2, w3, 0.2, torch.bfloat16)
+    ref = S.stem_tail_plain(y1, w2, w3, 0.2, torch.bfloat16)
+    assert got.shape == ref.shape == (3, 40, S.stem_dims(width)[1], 128)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    err = (got.float() - ref.float()).abs()
+    assert torch.quantile(err.flatten(), 0.99) < 0.05 and err.mean() < 0.02
+    assert err.max() < 0.1
 
 
 def test_stem_kernel_bf16_within_quantile_gate(cuda):
