@@ -10,13 +10,15 @@ Phases, each of which must pass or the script exits non-zero:
               a normal input and on one with 60 dB between its loud and quiet halves,
               whose quiet frames are also held relatively
   4. conv1    the fused conv1+IN1 kernel vs its plain version at (128, 80, 427): fp32
-              at rtol/atol 2e-5, zero rows 0 and 81, bf16 within 2e-2 mean relative error
+              at rtol/atol 2e-5 on a normal mel and on one offset by 100 (where fp32
+              moments would lose digits), zero rows 0 and 81, bf16 within 2e-2 mean
+              relative error
   5. stem     the stem (conv1 kernel, then the fused stem kernel) vs its plain version at
               (128, 80, 427), in fp32 (tight tolerance) and in bf16 (the serving dtype);
               the stem kernel alone vs its plain version on one activation, its fp32
               path at the tight tolerance and its bf16 path against the plain bf16 tail
   6. shift    the tap-shift probe kernel, aligned and subtile, vs its plain version at
-              (128, 4480, 128) x (9, 128, 128), within one bf16 rounding
+              (128, 4480, C) x (9, C, C) for C = 64 and 128, within one bf16 rounding
   7. serve    SDT-BP, bf16, full width, seeded weights: three requests (B = 1, 16, 128)
               through build_serving_fn; the mel, conv1 and stem launch counters must read
               1, 2, 3 after the requests; the B=128 result is held to an fp32 all-plain
@@ -186,7 +188,18 @@ def main() -> None:
         check(not t[:, 0].any() and not t[:, -1].any(), "conv1 rows 0 and 81 are not zero")
     conv1_rel16 = ((k1b.float() - ref1).abs().mean() / ref1.abs().mean()).item()
     check(conv1_rel16 < 2e-2, f"conv1 bf16 kernel vs fp32 plain: mean rel err {conv1_rel16}")
-    del ref1, k1, k1b
+    # a mel at a large constant offset, where fp32 moments E[y^2] - E[y]^2 would
+    # lose digits: the kernel's fp64 Gram statistics hold the same fp32 gate
+    offset_mel = mels[0] + 100.0
+    ref1 = C1.conv1_in_plain(offset_mel, w1, 0.2, torch.float32)
+    k1 = C1.conv1_in_kernel(offset_mel, w1, 0.2, torch.float32)
+    torch.cuda.synchronize()
+    offset_err = (k1 - ref1).abs().max().item()
+    check(torch.allclose(k1, ref1, rtol=2e-5, atol=2e-5),
+          f"conv1 fp32 kernel vs plain on the offset mel: max abs err {offset_err}")
+    check(not k1[:, 0].any() and not k1[:, -1].any(), "conv1 rows 0 and 81 are not zero")
+    conv1_err = max(conv1_err, offset_err)
+    del ref1, k1, k1b, offset_mel
 
     def conv1_library(mel):
         x = F.conv2d(mel[:, None].to(bf), w1.to(bf), padding=1)
@@ -204,7 +217,8 @@ def main() -> None:
         plain_ms=cuda_ms(C1.conv1_in_plain, conv1_args, 5),
         bound_ms=conv1_b, bound_by=conv1_by,
         library_ms=cuda_ms(conv1_library, [(m,) for m in mels]))
-    print(f"[conv1] (128, 80, {W1}) fp32 max abs err {conv1_err:.3e} (rtol 2e-5, atol 2e-5); "
+    print(f"[conv1] (128, 80, {W1}) fp32 max abs err {conv1_err:.3e} (rtol 2e-5, atol 2e-5) "
+          f"over a normal mel and one offset by 100 ({offset_err:.3e} there); "
           f"rows 0 and 81 zero; bf16 mean rel err {conv1_rel16:.3e} (< 2e-2); bf16 kernel "
           f"{report['conv1']['ms']:.4f} ms, plain {report['conv1']['plain_ms']:.4f} ms, cuDNN "
           f"conv1+IN+lrelu {report['conv1']['library_ms']:.4f} ms, bound {conv1_b:.4f} ms "
@@ -288,24 +302,28 @@ def main() -> None:
     del mels, audios, y1s
 
     # ---- 6. shift-probe kernel ------------------------------------------------------
-    NP, MP, CP = 128, 4480, 128
+    # C = 128 (a 2-CTA cluster) for the kernels line, and C = 64 (one CTA)
+    NP, MP = 128, 4480
     MP_out = MP - 2 * 224
-    xs = [dev_randn(NP, MP, CP, scale=0.1).to(bf) for _ in range(3)]
-    wsh = dev_randn(9, CP, CP, scale=0.05).to(bf)
     shift_ms, shift_err = {}, 0.0
-    for mode in SP.MODES:
-        ks = SP.shift_taps_kernel(xs[0], wsh, MP_out, mode)
-        ps = SP.shift_taps_plain(xs[0], wsh, MP_out, mode)
-        torch.cuda.synchronize()
-        check(ks.shape == ps.shape == (NP, MP_out, CP) and ks.dtype == bf,
-              f"shift {mode} shape {tuple(ks.shape)} {ks.dtype}")
-        err = (ks.float() - ps.float()).abs().max().item()
-        # the same fp32 sums in another order, each cast to bf16: one rounding apart
-        check(torch.allclose(ks.float(), ps.float(), rtol=1e-2, atol=1e-3),
-              f"shift {mode} kernel vs plain: max abs err {err}")
-        shift_err = max(shift_err, err)
-        shift_ms[mode] = cuda_ms(SP.shift_taps_kernel, [(x, wsh, MP_out, mode) for x in xs])
-        del ks, ps
+    for CP in (64, 128):
+        xs = [dev_randn(NP, MP, CP, scale=0.1).to(bf) for _ in range(3)]
+        wsh = dev_randn(9, CP, CP, scale=0.05).to(bf)
+        for mode in SP.MODES:
+            ks = SP.shift_taps_kernel(xs[0], wsh, MP_out, mode)
+            ps = SP.shift_taps_plain(xs[0], wsh, MP_out, mode)
+            torch.cuda.synchronize()
+            check(ks.shape == ps.shape == (NP, MP_out, CP) and ks.dtype == bf,
+                  f"shift C={CP} {mode} shape {tuple(ks.shape)} {ks.dtype}")
+            err = (ks.float() - ps.float()).abs().max().item()
+            # the same fp32 sums in another order, each cast to bf16: one rounding apart
+            check(torch.allclose(ks.float(), ps.float(), rtol=1e-2, atol=1e-3),
+                  f"shift C={CP} {mode} kernel vs plain: max abs err {err}")
+            shift_err = max(shift_err, err)
+            shift_ms[(CP, mode)] = cuda_ms(SP.shift_taps_kernel,
+                                           [(x, wsh, MP_out, mode) for x in xs])
+            del ks, ps
+    CP = 128  # xs and wsh are C = 128's now
     w_conv = wsh.permute(2, 1, 0).contiguous()
 
     def shift_library(x):
@@ -318,15 +336,18 @@ def main() -> None:
         source="speechdrivestemplates_tpu_torch/csrc/shift_probe.cu",
         replaces="bench_profile.py:523",
         max_abs_err=shift_err,
-        ms=shift_ms["subtile"],
+        ms=shift_ms[(128, "subtile")],
         plain_ms=cuda_ms(SP.shift_taps_plain, [(x, wsh, MP_out, "subtile") for x in xs], 5),
         bound_ms=shift_b, bound_by=shift_by,
         library_ms=cuda_ms(shift_library, [(x,) for x in xs]))
-    print(f"[shift] ({NP}, {MP}, {CP}) x (9, {CP}, {CP}) aligned and subtile: max abs err "
-          f"{shift_err:.3e} (rtol 1e-2, atol 1e-3); kernel aligned {shift_ms['aligned']:.4f} ms, "
-          f"subtile {shift_ms['subtile']:.4f} ms, plain {report['shift_probe']['plain_ms']:.4f} "
-          f"ms, cuDNN conv1d {report['shift_probe']['library_ms']:.4f} ms, bound "
-          f"{shift_b:.4f} ms ({shift_by})", flush=True)
+    print(f"[shift] ({NP}, {MP}, C) x (9, C, C), C = 64 and 128, aligned and subtile: max abs "
+          f"err {shift_err:.3e} (rtol 1e-2, atol 1e-3); kernel C=128 aligned "
+          f"{shift_ms[(128, 'aligned')]:.4f} ms, subtile {shift_ms[(128, 'subtile')]:.4f} ms; "
+          f"C=64 aligned {shift_ms[(64, 'aligned')]:.4f} ms, subtile "
+          f"{shift_ms[(64, 'subtile')]:.4f} ms; C=128 plain "
+          f"{report['shift_probe']['plain_ms']:.4f} ms, cuDNN conv1d "
+          f"{report['shift_probe']['library_ms']:.4f} ms, bound {shift_b:.4f} ms ({shift_by})",
+          flush=True)
     del xs
 
     # ---- 7. serving --------------------------------------------------------------

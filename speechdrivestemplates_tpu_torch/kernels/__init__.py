@@ -31,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "mel": {"sdt_mel_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
-    "conv1": {"sdt_conv1_in_forward": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _F, _P]},
+    "conv1": {"sdt_conv1_in_forward": [_P, _P, _P, _I, _P, _I, _I, _F, _P]},
     "stem": {"sdt_stem_forward": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _F, _P]},
     "shift_probe": {"sdt_shift_taps_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},

@@ -54,7 +54,8 @@ def shift_taps_plain(x: torch.Tensor, w: torch.Tensor, m_out: int,
 
 def shift_taps_kernel(x: torch.Tensor, w: torch.Tensor, m_out: int,
                       mode: str = "subtile") -> torch.Tensor:
-    """The CUDA kernel (mma.sync, bf16 in, fp32 accumulation); same contract."""
+    """The CUDA kernel (wgmma with resident weights, a 2-CTA cluster at C = 128;
+    bf16 in, fp32 accumulation); same contract."""
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError("shift-probe kernel takes CUDA tensors on one device")
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:

@@ -104,7 +104,9 @@ def test_stem_kernel_bf16_within_quantile_gate(cuda):
     assert torch.quantile(err.flatten()[:4_000_000], 0.99) < 0.05 and err.mean() < 0.02
 
 
-@pytest.mark.parametrize("width", [2, 3, 37, 427, 428])
+# 600: the stats kernel stages the plane in two passes (512 columns each); 2100: the
+# apply pass takes two column blocks (2048 each)
+@pytest.mark.parametrize("width", [2, 3, 37, 427, 428, 600, 2100])
 @pytest.mark.parametrize("slope", [0.2, 0.0])
 def test_conv1_kernel_matches_plain(cuda, width, slope):
     from speechdrivestemplates_tpu_torch.ops import conv1 as C1
@@ -123,8 +125,39 @@ def test_conv1_kernel_matches_plain(cuda, width, slope):
     assert ((got16.float() - ref).abs().mean() / ref.abs().mean()) < 2e-2
 
 
+@pytest.mark.parametrize("width", [2, 3, 37, 427, 428])
+@pytest.mark.parametrize("kind", ["power", "offset"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv1_kernel_matches_plain_on_mel_like_inputs(cuda, width, kind, dtype):
+    """A power-like mel (nonnegative, heavy-tailed) and one at a large constant
+    offset, where fp32 moments E[y^2] - E[y]^2 would lose digits: the kernel's
+    fp64 Gram statistics and folded taps hold the fp32 gate; bf16 is a cast of
+    that result. One launch per call."""
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.ops import conv1 as C1
+
+    rng = np.random.RandomState(width)
+    if kind == "power":
+        mel = rng.standard_exponential((2, 80, width)) * rng.standard_exponential((2, 80, 1)) ** 2 * 3
+    else:
+        mel = 100.0 + rng.randn(2, 80, width)
+    mel = torch.from_numpy(mel.astype(np.float32)).to(cuda)
+    w1 = _randn(rng, 64, 1, 3, 3, scale=0.2)
+    ref = C1.conv1_in_plain(mel, w1, 0.2, torch.float32)
+    before = kernels.LAUNCHES["conv1"]
+    got = C1.fused_conv1_in(mel, w1, 0.2, dtype)
+    assert kernels.LAUNCHES["conv1"] == before + 1
+    assert got.shape == ref.shape == (2, C1.ROWS, width, 64) and got.dtype == dtype
+    assert not got[:, 0].any() and not got[:, -1].any()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-5)
+    else:
+        assert ((got.float() - ref).abs().mean() / ref.abs().mean()) < 2e-2
+
+
 @pytest.mark.parametrize("mode", ["aligned", "subtile"])
-@pytest.mark.parametrize("c, m, m_out", [(128, 4480, 4032), (64, 300, 250), (128, 137, 129)])
+@pytest.mark.parametrize("c, m, m_out", [(128, 4480, 4032), (64, 4480, 4032), (64, 300, 250),
+                                         (128, 137, 129)])
 def test_shift_probe_kernel_matches_plain(cuda, mode, c, m, m_out):
     from speechdrivestemplates_tpu_torch import kernels
     from speechdrivestemplates_tpu_torch.ops import shift_probe as SP
