@@ -26,8 +26,25 @@ Phases, each of which must pass or the script exits non-zero:
   8. cli      the serving command line on a seeded wav and a reference-layout .pth
   9. probe    the kernel-probe command line (profile_kernels, both probes) in a
               subprocess: rc 0, its JSON line, both of its kernels launched
-Then one JSON line with every kernel's error, times, bound and launches, the card's
-name and power limit, and last {"ok": true, "device": {...}}.
+ 10. train    SDT-BP bf16 training at full width, B = 32, on a synthetic speaker of 64
+              clips written under build/chip_smoke/: the mel kernel vs its plain
+              version on a train batch's audio (32, 68266), with phase 3's gates; one
+              step launches the mel kernel once and neither conv1 nor the stem (train
+              mode runs the plain stem under autograd), and the stem's weights get
+              gradients; at the pre-step weights the bf16 step's G_reg_loss is within
+              2% of an fp32 all-plain step's and the two generator gradients have a
+              cosine >= 0.99; 30 steps at LR 1e-3 keep every loss finite and bring the
+              mean G_reg_loss of the last 4 below that of the first 4; the step's time
+              by CUDA events over 20 steps on device-resident batches, and the trainer
+              loop's steps/s with its loader over two 50-step epochs of a 1,600-clip
+              speaker, and the loader's batches/s alone over a third
+ 11. train-cli  `python -m speechdrivestemplates_tpu_torch.main --device cuda` for two
+              epochs in a subprocess: rc 0, a JSON line naming a checkpoint, and the
+              serving command line serves a wav from that checkpoint
+Then one JSON line with every kernel's error, times, bound and launches (the mel
+kernel's count over the serving requests and the train phase's steps), the card's
+name and power limit, a JSON line with the train step's time, and last
+{"ok": true, "device": {...}}.
 
 Times are CUDA-event means over repeated calls after a warm-up; inputs rotate over
 three copies so that each call reads from device memory rather than the 50 MB L2.
@@ -37,6 +54,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -109,32 +127,39 @@ def main() -> None:
     report = {}
 
     # ---- 3. mel kernel -----------------------------------------------------------
+    def check_mel(audio, what):
+        """B1 against its plain version on ``audio`` and on a copy whose second
+        half is 60 dB quieter. The kernel's three-pass bf16 split keeps ~2^-16
+        relative: the gate of tests/test_mel_pallas.py. The quiet half's mel
+        values sit far below atol, so the frames whose window (samples
+        160 t - 200 .. 160 t + 199) lies wholly inside it are also held
+        relatively, on the bins above 1e-3 of their largest. Returns the max abs
+        error, the quiet frames' max rel error and their first frame."""
+        b, n = audio.shape
+        wide = audio.clone()
+        wide[:, n // 2:] *= 1e-3
+        t_quiet = -(-(n // 2 + 200) // 160)
+        err = 0.0
+        for name, a in (("normal", audio), ("60 dB", wide)):
+            k = M.mel_spectrogram_kernel(a)
+            p = M.mel_spectrogram_plain(a)
+            torch.cuda.synchronize()
+            check(k.shape == p.shape == (b, 80, n // 160 + 1), f"mel shape {tuple(k.shape)}")
+            e = (k - p).abs().max().item()
+            check(torch.allclose(k, p, rtol=1e-3, atol=1e-4),
+                  f"mel kernel vs plain ({what}, {name} input): max abs err {e}")
+            err = max(err, e)
+        q = p[..., t_quiet:]
+        sel = q > 1e-3 * q.max()
+        quiet_rel = ((k[..., t_quiet:] - q).abs()[sel] / q[sel]).max().item()
+        check(quiet_rel <= 1e-3,
+              f"mel kernel vs plain on the quiet half ({what}): max rel err {quiet_rel}")
+        return err, quiet_rel, t_quiet
+
     B, L = 128, 68267
     T = L // 160 + 1
     audios = [dev_randn(B, L, scale=0.1) for _ in range(3)]
-    # the kernel's three-pass bf16 split keeps ~2^-16 relative: the gate of
-    # tests/test_mel_pallas.py, also across a 60 dB step inside one clip
-    wide = audios[0].clone()
-    wide[:, L // 2:] *= 1e-3
-    # the quiet half's mel values sit far below atol, so the frames whose window
-    # (samples 160 t - 200 .. 160 t + 199) lies wholly inside it are also held
-    # relatively, on the bins above 1e-3 of their largest
-    t_quiet = -(-(L // 2 + 200) // 160)
-    mel_err = 0.0
-    for name, a in (("normal", audios[0]), ("60 dB", wide)):
-        k = M.mel_spectrogram_kernel(a)
-        p = M.mel_spectrogram_plain(a)
-        torch.cuda.synchronize()
-        check(k.shape == p.shape == (B, 80, T), f"mel shape {tuple(k.shape)}")
-        err = (k - p).abs().max().item()
-        check(torch.allclose(k, p, rtol=1e-3, atol=1e-4),
-              f"mel kernel vs plain ({name} input): max abs err {err}")
-        mel_err = max(mel_err, err)
-    q = p[..., t_quiet:]
-    sel = q > 1e-3 * q.max()
-    quiet_rel = ((k[..., t_quiet:] - q).abs()[sel] / q[sel]).max().item()
-    check(quiet_rel <= 1e-3, f"mel kernel vs plain on the quiet half: max rel err {quiet_rel}")
-    del wide, k, p, q, sel
+    mel_err, quiet_rel, t_quiet = check_mel(audios[0], f"({B}, {L})")
     fb = torch.from_numpy(M._mel_filterbank_np(16000, 512, 80, 55.0, 7500.0)).to(dev)
     hann = torch.hann_window(400, periodic=True, device=dev)
 
@@ -438,12 +463,182 @@ def main() -> None:
           f"rel diff {probe['conv1_probe']['rel_diff_layer1']:.3e}; shift probe "
           f"{probe['shift_probe']['ms']}; launches {probe['launches']}", flush=True)
 
+    # ---- 10. train ----------------------------------------------------------------
+    from speechdrivestemplates_tpu_torch.config import apply_overrides
+    from speechdrivestemplates_tpu_torch.datasets.synthetic import make_synthetic_speaker
+    from speechdrivestemplates_tpu_torch.pipelines.trainer import train_epoch, train_loader
+    from speechdrivestemplates_tpu_torch.pipelines.voice2pose import (
+        Voice2PoseTrainState, train_step)
+
+    root = os.path.join(work, "speakers")
+    shutil.rmtree(root, ignore_errors=True)
+    make_synthetic_speaker(root, "oliver", num_train=64, num_dev=0)
+    opts = ["DATASET.ROOT_DIR", root, "TRAIN.VALIDATE", "False", "TRAIN.SAVE_VIDEO", "False"]
+    tcfg = apply_overrides(sdt_bp(), list(opts))  # bf16, TRAIN.BATCH_SIZE 32
+    loader = train_loader(tcfg)
+    TB = tcfg.TRAIN.BATCH_SIZE
+    check(TB == 32 and len(loader) == 2, f"train loader: {len(loader)} batches of {TB}")
+    loader.batch_sampler.set_epoch(1)
+    batches = list(loader)
+    state = Voice2PoseTrainState(tcfg, len(loader.dataset), dev)
+
+    # B1 at the train step's shape, (32, 68266): an even L puts each sample at
+    # another byte alignment and the last frame's reflect padding elsewhere
+    # than phase 3's (128, 68267); these comparison launches are not counted
+    TL = batches[0]["audio"].shape[-1]
+    train_mel_err, train_quiet_rel, _ = check_mel(batches[0]["audio"].to(dev),
+                                                  f"train batch ({TB}, {TL})")
+    report["mel"]["max_abs_err"] = max(report["mel"]["max_abs_err"], train_mel_err)
+
+    kernels.reset_launch_counts()
+    losses, _ = train_step(state, batches[0])
+    torch.cuda.synchronize()
+    one_step = dict(kernels.LAUNCHES)
+    check({n: one_step.get(n, 0) for n in ("mel", "conv1", "stem")}
+          == {"mel": 1, "conv1": 0, "stem": 0},
+          f"one train step launched {one_step}: expected mel 1, conv1 0, stem 0")
+    stem_grads = [m.conv.weight.grad for m in state.generator.audio_encoder.layers()[:3]]
+    check(all(g is not None and bool(torch.isfinite(g).all()) and g.abs().sum() > 0
+              for g in stem_grads), "the stem's weights got no gradient in train mode")
+    grads16 = torch.cat([p.grad.float().flatten() for p in state.generator.parameters()])
+    reg16 = losses["G_reg_loss"].item()
+
+    # the same step at the same seeded weights in fp32, all plain (no TF32)
+    cfg32 = apply_overrides(sdt_bp(precision="fp32"), list(opts))
+    state32 = Voice2PoseTrainState(cfg32, len(loader.dataset), dev)
+    losses32, _ = train_step(state32, batches[0], plain=True)
+    torch.cuda.synchronize()
+    check(dict(kernels.LAUNCHES) == one_step, "the all-plain fp32 step launched a kernel")
+    grads32 = torch.cat([p.grad.flatten() for p in state32.generator.parameters()])
+    reg32 = losses32["G_reg_loss"].item()
+    reg_rel = abs(reg16 - reg32) / abs(reg32)
+    grad_cos = torch.nn.functional.cosine_similarity(grads16.double(), grads32.double(),
+                                                     dim=0).item()
+    check(reg_rel <= 0.02 and grad_cos >= 0.99,
+          f"bf16 step vs fp32 all-plain step: G_reg_loss {reg16} vs {reg32} (rel {reg_rel}), "
+          f"gradient cosine {grad_cos}")
+    del state, state32, grads16, grads32, stem_grads
+
+    # learning: 30 steps at LR 1e-3 through the loader
+    lcfg = apply_overrides(sdt_bp(), opts + ["TRAIN.LR", "1e-3"])
+    state = Voice2PoseTrainState(lcfg, len(loader.dataset), dev)
+    history, epoch = [], 0
+    while len(history) < 30:
+        epoch += 1
+        loader.batch_sampler.set_epoch(epoch)
+        for b in loader:
+            step_losses, _ = train_step(state, b)
+            history.append(torch.stack(list(step_losses.values())))
+    torch.cuda.synchronize()
+    train_launches = dict(kernels.LAUNCHES)
+    check(train_launches.get("mel", 0) == 1 + len(history) and not train_launches.get("conv1")
+          and not train_launches.get("stem"),
+          f"train phase launches {train_launches} over {1 + len(history)} kernel-path steps")
+    hist = torch.stack(history).cpu()
+    names = list(step_losses)
+    check(bool(torch.isfinite(hist).all()), f"non-finite training losses: {hist}")
+    reg = hist[:, names.index("G_reg_loss")].tolist()
+    first4, last4 = sum(reg[:4]) / 4, sum(reg[-4:]) / 4
+    check(last4 < first4, f"G_reg_loss did not fall over {len(reg)} steps: first 4 mean "
+                          f"{first4}, last 4 mean {last4}")
+    report["mel"]["launches"] += train_launches["mel"]
+
+    # the step on device-resident batches, loader excluded
+    def to_dev(x):
+        return {k: to_dev(v) for k, v in x.items()} if isinstance(x, dict) else x.to(dev)
+
+    dev_batches = [(to_dev(b),) for b in batches]
+    step_ms = cuda_ms(lambda b: train_step(state, b), dev_batches, 20)
+    del state, dev_batches, batches
+
+    # the trainer loop with its loader over long epochs: a speaker of 1,600
+    # clips (50 steps an epoch), two epochs on one persistent worker pool; the
+    # first epoch starts the workers, the second runs on a warm pool
+    long_root = os.path.join(work, "speakers_long")
+    shutil.rmtree(long_root, ignore_errors=True)
+    make_synthetic_speaker(long_root, "oliver", num_train=50 * TB, num_dev=0)
+    long_cfg = apply_overrides(sdt_bp(), ["DATASET.ROOT_DIR", long_root,
+                                          "TRAIN.VALIDATE", "False", "TRAIN.SAVE_VIDEO", "False"])
+    long_loader = train_loader(long_cfg)
+    state = Voice2PoseTrainState(long_cfg, len(long_loader.dataset), dev)
+    loop_rates = []
+    for e in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = train_epoch(state, long_loader, e)[0]
+        torch.cuda.synchronize()
+        loop_rates.append(steps / (time.perf_counter() - t0))
+    check(steps == 50, f"long epoch: {steps} steps")
+    # the loader alone on the same warm pool: a third epoch's batches copied to
+    # the card, no train step
+    long_loader.batch_sampler.set_epoch(3)
+    torch.cuda.synchronize()
+    t0, fetched = time.perf_counter(), 0
+    for b in long_loader:
+        to_dev(b)
+        fetched += 1
+    torch.cuda.synchronize()
+    loader_rate = fetched / (time.perf_counter() - t0)
+    workers = long_cfg.SYS.NUM_WORKERS
+    train_line = {"train": {"card": card, "model": "SDT-BP", "precision": "bf16", "batch": TB,
+                            "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
+                            "loop_steps_per_s_with_loader": loop_rates[1],
+                            "loop_steps_per_s_first_epoch": loop_rates[0],
+                            "loop_epochs": 2, "loop_steps_per_epoch": steps,
+                            "loop_clips": len(long_loader.dataset), "loader_workers": workers,
+                            "loader_alone_batches_per_s": loader_rate,
+                            "reg_loss_bf16_vs_fp32_rel": reg_rel, "grad_cos": grad_cos,
+                            "reg_loss_first4": first4, "reg_loss_last4": last4,
+                            "mel_train_shape_max_abs_err": train_mel_err}}
+    print(f"[train] SDT-BP bf16 B={TB}: mel kernel vs plain at ({TB}, {TL}) max abs err "
+          f"{train_mel_err:.3e} (rtol 1e-3, atol 1e-4), quiet half max rel err "
+          f"{train_quiet_rel:.3e} (rtol 1e-3); one step launched mel 1, conv1 0, stem 0; stem "
+          f"weights got gradients; G_reg_loss {reg16:.6f} vs fp32 all-plain {reg32:.6f} "
+          f"(rel {reg_rel:.3e}, <= 0.02), gradient cosine {grad_cos:.6f} (>= 0.99); "
+          f"{len(reg)} steps at LR 1e-3: G_reg_loss first-4 mean {first4:.5f} -> last-4 "
+          f"{last4:.5f}; step {step_ms:.4f} ms = {1e3 / step_ms:.2f} steps/s "
+          f"(device-resident batches); trainer loop with loader ({workers} workers, "
+          f"{len(long_loader.dataset)} clips, 2 epochs of {steps} steps): "
+          f"{loop_rates[0]:.2f} steps/s in the first epoch, {loop_rates[1]:.2f} in the second; "
+          f"the loader alone (a third epoch, batches copied to the card) {loader_rate:.2f} "
+          f"batches/s",
+          flush=True)
+    del state, long_loader, loader
+    shutil.rmtree(long_root, ignore_errors=True)
+
+    # ---- 11. training command line ---------------------------------------------------
+    runs = os.path.join(work, "runs")
+    shutil.rmtree(runs, ignore_errors=True)
+    r = subprocess.run([sys.executable, "-m", "speechdrivestemplates_tpu_torch.main",
+                        "--device", "cuda", "--tag", "chip_smoke", *opts,
+                        "SYS.OUTPUT_DIR", runs, "TRAIN.NUM_EPOCHS", "2"],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"training CLI rc {r.returncode}:\n{r.stdout}\n{r.stderr}")
+    summary = json.loads(r.stdout.strip().splitlines()[-1])
+    ckpt = summary.get("checkpoint")
+    check(bool(ckpt) and os.path.exists(ckpt) and summary["steps"] == 4,
+          f"training CLI line: {summary}")
+    served = os.path.join(work, "trained_out.npz")
+    r = subprocess.run([sys.executable, "-m", "speechdrivestemplates_tpu_torch.serving",
+                        ckpt, wav_path, served, "--device", "cuda"],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"serving CLI on the trained checkpoint rc {r.returncode}:\n"
+                             f"{r.stdout}\n{r.stderr}")
+    with np.load(served) as z:
+        got = z["poses"]
+    check(got.shape == (64, 2, 121) and bool(np.isfinite(got).all()),
+          f"poses served from the trained checkpoint: {got.shape}")
+    print(f"[train-cli] 2 epochs, {summary['steps']} steps, last losses "
+          f"{summary['losses']}; {os.path.relpath(ckpt, ROOT)} served: {r.stdout.strip()}",
+          flush=True)
+
     # ---- summary -----------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)
     print(json.dumps({"kernels": [{k: report[n][k] for k in keys}
                                   for n in ("mel", "conv1", "stem", "shift_probe")]}))
+    print(json.dumps(train_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

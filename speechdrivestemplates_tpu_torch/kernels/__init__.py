@@ -9,6 +9,10 @@ when its source is newer. ``build_all()`` compiles every source at once, one
 
 ``LAUNCHES`` counts, per kernel, the calls in which its wrapper launched it
 (the wrappers in ``ops/`` add one right where they launch, nowhere else).
+
+The kernels are forward-only, as the JAX package's Pallas kernels are: they
+write through raw pointers, so their outputs carry no ``grad_fn``. Each
+wrapper calls ``refuse_grad`` first, so a gradient is never dropped silently.
 """
 
 from __future__ import annotations
@@ -101,6 +105,18 @@ def library(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
     return lib
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when autograd would record through a forward-only kernel: grad
+    mode is on and one of ``tensors`` requires grad."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward and its output would carry no gradient: call "
+            "it under torch.no_grad() or torch.inference_mode(), or train through "
+            "the plain version (a model in train() mode takes it)")
 
 
 def check(err: int, what: str) -> None:

@@ -1,4 +1,5 @@
-"""Model registry: ``build_model(name, cfg, device)`` maps config keys to modules."""
+"""Model registry: ``build_model(name, cfg, device)``; each registered class reads
+its own config keys in ``from_cfg(cfg, dtype, generator)``."""
 
 from __future__ import annotations
 
@@ -7,12 +8,14 @@ from typing import Optional
 import torch
 
 from ..utils.device import resolve_device
+from .autoencoder import PoseSeqEncoder
 from .generator import AudioEncoder, SequenceGeneratorCNN, UNet1D
 
-MODELS = {"SequenceGeneratorCNN": SequenceGeneratorCNN}
+MODELS = {"SequenceGeneratorCNN": SequenceGeneratorCNN,
+          "PoseSeqEncoder": PoseSeqEncoder}
 
-__all__ = ["AudioEncoder", "SequenceGeneratorCNN", "UNet1D", "build_model",
-           "compute_dtype"]
+__all__ = ["AudioEncoder", "PoseSeqEncoder", "SequenceGeneratorCNN", "UNet1D",
+           "build_model", "compute_dtype"]
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -34,13 +37,5 @@ def build_model(name: str, cfg, device="cuda",
     device = resolve_device(device)
     if name not in MODELS:
         raise KeyError(f"Unknown model: {name}; available: {sorted(MODELS)}")
-    gcfg = cfg.VOICE2POSE.GENERATOR
-    model = MODELS[name](
-        num_landmarks=cfg.DATASET.NUM_LANDMARKS,
-        code_dim=gcfg.CLIP_CODE.DIMENSION,
-        norm=gcfg.NORM,
-        leaky=gcfg.LEAKY_RELU,
-        dtype=compute_dtype(cfg),
-        generator=generator,
-    )
+    model = MODELS[name].from_cfg(cfg, compute_dtype(cfg), generator)
     return model.eval().to(device)

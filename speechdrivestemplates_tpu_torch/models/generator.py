@@ -1,4 +1,4 @@
-"""Audio -> pose-sequence generator, eval forward at static lengths.
+"""Audio -> pose-sequence generator at static lengths, eval and train forward.
 
 Counterpart of the JAX package's ``models/generator.py`` (AudioEncoder,
 UNet1D, SequenceGeneratorCNN). Submodule names are the reference torch
@@ -32,8 +32,11 @@ ENCODER_SPECS = [(64, {}), (64, dict(downsample=True)),
 class AudioEncoder(nn.Module):
     """2D CNN over the mel spectrogram, resampled to the video frame rate.
 
-    Layers 0-2 run as one stem (``ops/stem.py``): the fused CUDA kernel on the
-    card, the plain layers on the CPU or when ``plain`` is set.
+    Layers 0-2 run as one stem (``ops/stem.py``): the fused CUDA kernels in
+    eval mode on the card; the plain layers (cuDNN convs under autograd) in
+    train mode, on the CPU, or when ``plain`` is set. The kernels have no
+    backward, as the JAX package's Pallas stem has none: it runs only at
+    inference there too.
     """
 
     def __init__(self, norm: str = "IN", leaky: bool = True,
@@ -57,7 +60,8 @@ class AudioEncoder(nn.Module):
                 plain: bool = False) -> torch.Tensor:
         """mel (B, 80, T_mel) -> (B, 256, num_frames)."""
         layers = self.layers()
-        stem = stem_ops.stem_plain if plain else stem_ops.audio_encoder_stem
+        stem = (stem_ops.stem_plain if plain or self.training
+                else stem_ops.audio_encoder_stem)
         x = stem(mel, *(layers[i].conv.weight for i in range(3)),
                  slope=self.slope, dtype=self.dtype)  # (B, 40, W2, 128)
         x = x.permute(0, 3, 1, 2)
@@ -127,12 +131,20 @@ class SequenceGeneratorCNN(nn.Module):
             *[ConvNormRelu("1d", 256, 256, norm=norm, leaky=leaky, dtype=dtype,
                            generator=generator) for _ in range(4)], out)
 
+    @classmethod
+    def from_cfg(cls, cfg, dtype: torch.dtype,
+                 generator: Optional[torch.Generator] = None) -> "SequenceGeneratorCNN":
+        gcfg = cfg.VOICE2POSE.GENERATOR
+        return cls(cfg.DATASET.NUM_LANDMARKS, gcfg.CLIP_CODE.DIMENSION, gcfg.NORM,
+                   gcfg.LEAKY_RELU, dtype, generator)
+
     def forward(self, mel: torch.Tensor, num_frames: int,
                 code: Optional[torch.Tensor] = None,
                 plain: bool = False) -> torch.Tensor:
         """mel (B, 80, T_mel); code (B, code_dim) or (B, code_dim, T) ->
         normalized poses (B, num_frames, 2, K) in the compute dtype.
-        ``plain`` runs the stem's plain version even on the card (a reference)."""
+        ``plain`` runs the stem's plain version even on the card in eval mode
+        (a reference); train mode always does."""
         x = self.audio_encoder(mel, num_frames, plain)  # (B, 256, T)
         if self.code_dim is not None:
             if code is None:

@@ -89,7 +89,9 @@ def conv1_in_folded(mel: torch.Tensor, w1: torch.Tensor, slope: float = 0.2,
 
 def conv1_in_kernel(mel: torch.Tensor, w1: torch.Tensor, slope: float = 0.2,
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """The fused CUDA kernel; same contract as the plain version."""
+    """The fused CUDA kernel; same contract as the plain version. Forward-only:
+    raises for an input that requires grad under grad mode."""
+    kernels.refuse_grad("the conv1 kernel", mel, w1)
     dev = mel.device
     if dev.type != "cuda":
         raise ValueError("conv1 kernel takes CUDA tensors")

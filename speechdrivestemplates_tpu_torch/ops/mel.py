@@ -135,7 +135,9 @@ def mel_spectrogram_plain(audio: torch.Tensor) -> torch.Tensor:
 
 
 def mel_spectrogram_kernel(audio: torch.Tensor) -> torch.Tensor:
-    """The fused STFT+mel CUDA kernel; same contract as the plain version."""
+    """The fused STFT+mel CUDA kernel; same contract as the plain version.
+    Forward-only: raises for audio that requires grad under grad mode."""
+    kernels.refuse_grad("the mel kernel", audio)
     if audio.device.type != "cuda":
         raise ValueError("mel kernel takes a CUDA tensor")
     if audio.dtype != torch.float32:

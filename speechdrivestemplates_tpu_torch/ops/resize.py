@@ -36,7 +36,10 @@ def _resize_matrix(in_len: int, out_len: int) -> np.ndarray:
 @functools.lru_cache(maxsize=256)
 def _resize_tensor(in_len: int, out_len: int, dtype: torch.dtype,
                    device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_resize_matrix(in_len, out_len)).to(device, dtype)
+    # made outside inference mode: a cached inference tensor (from a serving
+    # call) could not be saved for a later train step's backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(_resize_matrix(in_len, out_len)).to(device, dtype)
 
 
 def interpolate_linear_time(x: torch.Tensor, out_len: int) -> torch.Tensor:

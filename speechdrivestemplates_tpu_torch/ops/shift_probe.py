@@ -55,7 +55,9 @@ def shift_taps_plain(x: torch.Tensor, w: torch.Tensor, m_out: int,
 def shift_taps_kernel(x: torch.Tensor, w: torch.Tensor, m_out: int,
                       mode: str = "subtile") -> torch.Tensor:
     """The CUDA kernel (wgmma with resident weights, a 2-CTA cluster at C = 128;
-    bf16 in, fp32 accumulation); same contract."""
+    bf16 in, fp32 accumulation); same contract. Forward-only: raises for an
+    input that requires grad under grad mode."""
+    kernels.refuse_grad("the shift-probe kernel", x, w)
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError("shift-probe kernel takes CUDA tensors on one device")
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:

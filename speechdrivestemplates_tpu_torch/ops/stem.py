@@ -56,7 +56,9 @@ def stem_tail_plain(y1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor,
 def stem_tail_kernel(y1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor,
                      slope: float = 0.2, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """[conv2, IN2, conv3, IN3] (the fused stem kernel) on conv1's padded
-    activation; same contract as ``stem_tail_plain``."""
+    activation; same contract as ``stem_tail_plain``. Forward-only: raises for
+    an input that requires grad under grad mode."""
+    kernels.refuse_grad("the stem kernel", y1, w2, w3)
     dev = y1.device
     if dev.type != "cuda":
         raise ValueError("stem kernel takes CUDA tensors")

@@ -31,7 +31,7 @@ def _randn(rng, *shape, scale=1.0, device="cuda"):
 # cross sample boundaries
 @pytest.mark.parametrize("dynamic_range_db", [0, 60])
 @pytest.mark.parametrize("shape", [(1, 257), (7, 257), (1, 300), (3, 300), (3, 16000),
-                                   (9, 16000), (5, 68267), (2, 68267)])
+                                   (9, 16000), (5, 68267), (2, 68267), (32, 68266)])
 def test_mel_kernel_matches_plain(cuda, shape, dynamic_range_db):
     from speechdrivestemplates_tpu_torch import kernels
     from speechdrivestemplates_tpu_torch.ops import mel as M
@@ -186,3 +186,84 @@ def test_stem_launches_conv1_then_stem_once_each(cuda):
         S.audio_encoder_stem(mel, *w, dtype=torch.bfloat16)
         for name in ("conv1", "stem"):
             assert kernels.LAUNCHES[name] == before.get(name, 0) + 1, (i, name)
+
+
+def test_kernel_wrappers_raise_on_cuda_tensors_that_require_grad(cuda):
+    """A kernel's output carries no grad_fn: each wrapper raises rather than
+    drop a gradient, and launches nothing."""
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.ops import conv1 as C1
+    from speechdrivestemplates_tpu_torch.ops import mel as M
+    from speechdrivestemplates_tpu_torch.ops import shift_probe as SP
+    from speechdrivestemplates_tpu_torch.ops import stem as S
+
+    rng = np.random.RandomState(4)
+    w1 = _randn(rng, 64, 1, 3, 3, scale=0.2).requires_grad_()
+    w2 = _randn(rng, 64, 64, 4, 4, scale=0.05).requires_grad_()
+    w3 = _randn(rng, 128, 64, 3, 3, scale=0.05)
+    calls = [lambda: M.mel_spectrogram(_randn(rng, 2, 16000).requires_grad_()),
+             lambda: C1.fused_conv1_in(_randn(rng, 2, 80, 64), w1),
+             lambda: S.stem_tail_kernel(torch.zeros(2, 82, 64, 64, device="cuda"), w2, w3),
+             lambda: S.audio_encoder_stem(_randn(rng, 2, 80, 64), w1, w2, w3),
+             lambda: SP.shift_taps(_randn(rng, 2, 300, 64).to(torch.bfloat16).requires_grad_(),
+                                   _randn(rng, 9, 64, 64).to(torch.bfloat16), 250)]
+    before = dict(kernels.LAUNCHES)
+    for call in calls:
+        with pytest.raises(RuntimeError, match="has no backward"):
+            call()
+    assert dict(kernels.LAUNCHES) == before
+    with torch.no_grad():
+        out = C1.fused_conv1_in(_randn(rng, 2, 80, 64), w1)
+    assert out.grad_fn is None and kernels.LAUNCHES["conv1"] == before.get("conv1", 0) + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_generator_train_mode_runs_the_plain_stem_with_gradients(cuda, dtype):
+    """Train mode launches no conv1 or stem kernel and the stem's weights get
+    gradients (cuDNN under autograd); eval mode under no_grad launches each
+    kernel once."""
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.config import sdt_bp
+    from speechdrivestemplates_tpu_torch.models import build_model
+
+    precision = "bf16" if dtype == torch.bfloat16 else "fp32"
+    model = build_model("SequenceGeneratorCNN", sdt_bp(precision=precision), device="cuda")
+    rng = np.random.RandomState(5)
+    mel, code = _randn(rng, 2, 80, 107), _randn(rng, 2, 32)
+    before = dict(kernels.LAUNCHES)
+    model.train()
+    model(mel, 32, code).float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert {n: kernels.LAUNCHES[n] - before.get(n, 0) for n in ("conv1", "stem")} == \
+        {"conv1": 0, "stem": 0}
+    for layer in model.audio_encoder.layers()[:3]:
+        g = layer.conv.weight.grad
+        assert g is not None and torch.isfinite(g).all() and g.abs().sum() > 0
+    model.eval()
+    with torch.no_grad():
+        model(mel, 32, code)
+    assert {n: kernels.LAUNCHES[n] - before.get(n, 0) for n in ("conv1", "stem")} == \
+        {"conv1": 1, "stem": 1}
+
+
+def test_train_step_on_the_card(cuda):
+    """One SDT-BP bf16 train step on a device-resident batch: the mel kernel
+    once, no stem kernel, finite losses, a KL skipped at the zero bank."""
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.config import sdt_bp
+    from speechdrivestemplates_tpu_torch.pipelines.voice2pose import (Voice2PoseTrainState,
+                                                                     train_step)
+    from speechdrivestemplates_tpu_torch.profile_train import train_batch
+
+    cfg = sdt_bp()
+    state = Voice2PoseTrainState(cfg, 8, "cuda")
+    batch = train_batch(cfg, 4, 8, "cuda")
+    before = dict(kernels.LAUNCHES)
+    losses, results = train_step(state, batch)
+    torch.cuda.synchronize()
+    assert {n: kernels.LAUNCHES[n] - before.get(n, 0) for n in ("mel", "conv1", "stem")} == \
+        {"mel": 1, "conv1": 0, "stem": 0}
+    assert all(torch.isfinite(v) for v in losses.values())
+    assert losses["G_clipcode_kl_loss"].item() == 0.0
+    assert results["poses_pred_batch"].shape == (4, 64, 2, 121)
+    assert state.clips_code.detach()[:4].abs().sum() > 0
