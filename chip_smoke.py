@@ -41,10 +41,30 @@ Phases, each of which must pass or the script exits non-zero:
  11. train-cli  `python -m speechdrivestemplates_tpu_torch.main --device cuda` for two
               epochs in a subprocess: rc 0, a JSON line naming a checkpoint, and the
               serving command line serves a wav from that checkpoint
+ 12. pose2pose  the Pose2Pose VAE at full width, B = 32, on phase 10's speaker: one
+              step launches no kernel and leaves the banks holding its mu and logvar
+              at the batch's clip_index and zeros elsewhere; 30 steps at LR 1e-3 keep
+              every loss finite and bring the mean reg_loss of the last 4 below that of
+              the first 4; the step's time by CUDA events; its checkpoint
+ 13. eval     SDT-BP `pipelines.trainer.test` of phase 11's checkpoint on the speaker's
+              35 dev clips at TEST.BATCH_SIZE 32 (a batch of 32, then a ragged one of
+              3), phase 12's checkpoint as AE_CHECKPOINT: the mel, conv1 and stem
+              counters each read the number of eval batches; L2_dist within 2% of an
+              fp32 all-plain evaluation at the same weights and codes (the codes the
+              test drew, read back from its result archives); finite FGD_mu and
+              FGD_mu_logvar; the mel kernel and the stem kernels (conv1, then the stem)
+              against their plain versions at the ragged batch's shapes (3, 68266)
+              and (3, 80, 427); the eval forward's ms per batch of 32
+ 14. chain-cli  through the command line, two epochs each, in subprocesses:
+              `--config_file configs/pose2pose.yaml`, then SDT-BP with its checkpoint as
+              AE_CHECKPOINT and TRAIN.VALIDATE True, then `--test_only --checkpoint` of
+              that SDT-BP checkpoint (its JSON names the four test metrics), then SDT-VAE
+              on the Pose2Pose bank, which its checkpoint holds unchanged
 Then one JSON line with every kernel's error, times, bound and launches (the mel
-kernel's count over the serving requests and the train phase's steps), the card's
-name and power limit, a JSON line with the train step's time, and last
-{"ok": true, "device": {...}}.
+kernel's count over the serving requests, the train phase's steps and the eval
+batches; conv1's and the stem's over the serving requests and the eval batches),
+the card's name and power limit, a JSON line with the train step's time and one
+with phases 12-13's numbers, and last {"ok": true, "device": {...}}.
 
 Times are CUDA-event means over repeated calls after a warm-up; inputs rotate over
 three copies so that each call reads from device memory rather than the 50 MB L2.
@@ -467,12 +487,15 @@ def main() -> None:
     from speechdrivestemplates_tpu_torch.config import apply_overrides
     from speechdrivestemplates_tpu_torch.datasets.synthetic import make_synthetic_speaker
     from speechdrivestemplates_tpu_torch.pipelines.trainer import train_epoch, train_loader
+    from speechdrivestemplates_tpu_torch.pipelines import voice2pose as V2P
     from speechdrivestemplates_tpu_torch.pipelines.voice2pose import (
         Voice2PoseTrainState, train_step)
 
     root = os.path.join(work, "speakers")
     shutil.rmtree(root, ignore_errors=True)
-    make_synthetic_speaker(root, "oliver", num_train=64, num_dev=0)
+    # 35 dev clips for phase 13: an eval batch of 32 and a ragged one of 3 (the
+    # train clips do not depend on num_dev)
+    make_synthetic_speaker(root, "oliver", num_train=64, num_dev=35)
     opts = ["DATASET.ROOT_DIR", root, "TRAIN.VALIDATE", "False", "TRAIN.SAVE_VIDEO", "False"]
     tcfg = apply_overrides(sdt_bp(), list(opts))  # bf16, TRAIN.BATCH_SIZE 32
     loader = train_loader(tcfg)
@@ -632,6 +655,166 @@ def main() -> None:
           f"{summary['losses']}; {os.path.relpath(ckpt, ROOT)} served: {r.stdout.strip()}",
           flush=True)
 
+    # ---- 12. pose2pose ----------------------------------------------------------------
+    from speechdrivestemplates_tpu_torch.config import pose2pose
+    from speechdrivestemplates_tpu_torch.pipelines import pose2pose as P2P
+    from speechdrivestemplates_tpu_torch.pipelines import trainer
+
+    popts = ["DATASET.ROOT_DIR", root, "TRAIN.VALIDATE", "False", "TRAIN.SAVE_VIDEO", "False"]
+    pcfg = apply_overrides(pose2pose(), popts + ["TRAIN.LR", "1e-3"])
+    ploader = train_loader(pcfg)
+    pstate = P2P.Pose2PoseTrainState(pcfg, len(ploader.dataset), dev)
+    ploader.batch_sampler.set_epoch(1)
+    pbatches = list(ploader)
+    kernels.reset_launch_counts()
+    plosses, presults = P2P.train_step(pstate, pbatches[0])
+    torch.cuda.synchronize()
+    check(sum(kernels.LAUNCHES.values()) == 0, f"a Pose2Pose step launched {dict(kernels.LAUNCHES)}")
+    idx = pbatches[0]["clip_index"].to(dev)
+    rest = torch.ones(len(ploader.dataset), dtype=torch.bool, device=dev)
+    rest[idx] = False
+    for bank in ("clip_code_mu", "clip_code_logvar"):
+        b = getattr(pstate, bank)
+        check(torch.equal(b[idx], presults[bank].float()) and not b[rest].any(),
+              f"Pose2Pose {bank} after one step: not the step's rows at clip_index and "
+              "zeros elsewhere")
+    phist = [torch.stack(list(plosses.values()))]
+    for b in pbatches[1:]:
+        phist.append(torch.stack(list(P2P.train_step(pstate, b)[0].values())))
+    epoch = 1
+    while len(phist) < 30:
+        epoch += 1
+        ploader.batch_sampler.set_epoch(epoch)
+        for b in ploader:
+            phist.append(torch.stack(list(P2P.train_step(pstate, b)[0].values())))
+    phist = torch.stack(phist[:30]).cpu()
+    check(bool(torch.isfinite(phist).all()), f"non-finite Pose2Pose losses: {phist}")
+    preg = phist[:, list(plosses).index("reg_loss")].tolist()
+    p_first4, p_last4 = sum(preg[:4]) / 4, sum(preg[-4:]) / 4
+    check(p_last4 < p_first4, f"Pose2Pose reg_loss did not fall over 30 steps: first 4 mean "
+                              f"{p_first4}, last 4 mean {p_last4}")
+    p_dev = [(to_dev(b),) for b in pbatches]
+    p_step_ms = cuda_ms(lambda b: P2P.train_step(pstate, b), p_dev, 20)
+    ae_ckpt = os.path.join(work, "pose2pose.pth")
+    pstate.save_checkpoint(ae_ckpt, 1, pstate.step)
+    print(f"[pose2pose] B={TB} fp32: one step launched no kernel and scattered its mu and "
+          f"logvar into the banks at clip_index (other rows zero); 30 steps at LR 1e-3: "
+          f"reg_loss first-4 mean {p_first4:.5f} -> last-4 {p_last4:.5f}; step "
+          f"{p_step_ms:.4f} ms = {1e3 / p_step_ms:.2f} steps/s (device-resident batches)",
+          flush=True)
+    del pstate, p_dev, pbatches, ploader
+
+    # ---- 13. eval -------------------------------------------------------------------
+    eopts = opts + ["VOICE2POSE.POSE_ENCODER.AE_CHECKPOINT", ae_ckpt, "TEST.SAVE_VIDEO", "False",
+                    "SYS.OUTPUT_DIR", os.path.join(work, "eval")]
+    ecfg = apply_overrides(sdt_bp(), list(eopts))  # bf16, TEST.BATCH_SIZE 32
+    eloader = trainer.eval_loader(ecfg)
+    ebatches = list(eloader)
+    check([b["audio"].shape[0] for b in ebatches] == [32, 3],
+          f"eval batches {[b['audio'].shape[0] for b in ebatches]}")
+    kernels.reset_launch_counts()
+    tested = trainer.test(ecfg, ckpt, "chip_smoke_eval", dev)
+    torch.cuda.synchronize()
+    eval_launches = dict(kernels.LAUNCHES)
+    check({n: eval_launches.get(n, 0) for n in ("mel", "conv1", "stem")}
+          == {"mel": 2, "conv1": 2, "stem": 2},
+          f"the test run over 2 eval batches launched {eval_launches}")
+    em = tested["metrics"]
+    check(all(np.isfinite(em[k]) for k in ("L2_dist", "lip_sync_error_n", "FGD_mu",
+                                           "FGD_mu_logvar")), f"test metrics {em}")
+    # the fp32 all-plain evaluation at the same weights and the codes the test drew
+    codes = []
+    for t in (1, 2):
+        with np.load(os.path.join(tested["output_dir"], "results",
+                                  f"epoch0-TEST-step{t}.npz")) as z:
+            codes.append(torch.from_numpy(z["condition_code"]).to(dev))
+    state32 = Voice2PoseTrainState(apply_overrides(sdt_bp(precision="fp32"), list(eopts)),
+                                   None, dev)
+    state32.load_pth(ckpt)
+    l2_sum = 0.0
+    for b, code in zip(ebatches, codes):
+        l2_sum += V2P.eval_step(state32, b, fixed_code=code, plain=True)[0]["L2_dist"].item() \
+            * b["audio"].shape[0]
+    torch.cuda.synchronize()
+    check(dict(kernels.LAUNCHES) == eval_launches, "the all-plain fp32 evaluation launched a kernel")
+    l2_plain = l2_sum / 35
+    l2_rel = abs(em["L2_dist"] - l2_plain) / l2_plain
+    check(l2_rel <= 0.02, f"test L2_dist {em['L2_dist']} vs fp32 all-plain {l2_plain} "
+                          f"(rel {l2_rel})")
+    # the kernels at the ragged batch's shapes, with the checkpoint's stem weights
+    eval_mel_err, _, _ = check_mel(ebatches[1]["audio"].to(dev), "ragged eval batch (3, 68266)")
+    report["mel"]["max_abs_err"] = max(report["mel"]["max_abs_err"], eval_mel_err)
+    state16 = Voice2PoseTrainState(ecfg, None, dev)
+    state16.load_pth(ckpt)
+    ws = [m.conv.weight.detach() for m in state16.generator.audio_encoder.layers()[:3]]
+    emel = M.mel_spectrogram_plain(ebatches[1]["audio"].to(dev))
+    k16 = S.stem_kernel(emel, *ws, 0.2, bf).float()
+    ref32 = S.stem_plain(emel, *ws, 0.2, torch.float32)
+    e16 = (k16 - ref32).abs().flatten()
+    ragged_q99 = torch.quantile(e16, 0.99).item()
+    check(k16.shape == ref32.shape == (3, *S.stem_dims(emel.shape[-1]), 128)
+          and ragged_q99 < 0.05 and e16.mean().item() < 0.02,
+          f"stem kernels bf16 vs fp32 plain at (3, 80, 427): p99 {ragged_q99}")
+    eval_ms = cuda_ms(lambda b: V2P.eval_step(state16, b), [(to_dev(ebatches[0]),)], 10)
+    for name in ("mel", "conv1", "stem"):
+        report[name]["launches"] += eval_launches[name]
+    chain_line = {"chain": {"card": card, "pose2pose_step_ms": p_step_ms,
+                            "pose2pose_reg_loss_first4": p_first4,
+                            "pose2pose_reg_loss_last4": p_last4,
+                            "eval_ms_per_batch32": eval_ms, "eval_metrics": em,
+                            "eval_l2_fp32_plain": l2_plain, "eval_l2_rel": l2_rel,
+                            "eval_launches": {n: eval_launches[n] for n in ("mel", "conv1",
+                                                                            "stem")}}}
+    print(f"[eval] SDT-BP bf16 test of {os.path.relpath(ckpt, ROOT)} on 35 dev clips (batches "
+          f"32, 3): launches mel 2, conv1 2, stem 2; L2_dist {em['L2_dist']:.4f} vs fp32 "
+          f"all-plain {l2_plain:.4f} (rel {l2_rel:.3e}, <= 0.02); lip_sync_error_n "
+          f"{em['lip_sync_error_n']:.5f}; FGD_mu {em['FGD_mu']:.4f}, FGD_mu_logvar "
+          f"{em['FGD_mu_logvar']:.4f}; mel kernel at (3, 68266) max abs err "
+          f"{eval_mel_err:.3e}; stem kernels at (3, 80, 427) bf16 p99 {ragged_q99:.4f} "
+          f"(< 0.05); eval forward {eval_ms:.4f} ms per batch of 32", flush=True)
+    del state32, state16, ebatches, eloader
+
+    # ---- 14. chain through the command line -----------------------------------------
+    chain = os.path.join(work, "chain")
+    shutil.rmtree(chain, ignore_errors=True)
+    common = [*opts, "TEST.SAVE_VIDEO", "False", "SYS.OUTPUT_DIR", chain,
+              "TRAIN.NUM_EPOCHS", "2"]
+
+    def cli(flags, *overrides):
+        """``main`` with ``flags``, then the common overrides, then ``overrides``."""
+        r = subprocess.run([sys.executable, "-m", "speechdrivestemplates_tpu_torch.main",
+                            "--device", "cuda", *flags, *common, *overrides], cwd=ROOT,
+                           env=env, capture_output=True, text=True, timeout=600)
+        check(r.returncode == 0, f"main {flags} rc {r.returncode}:\n{r.stdout}\n{r.stderr}")
+        return json.loads(r.stdout.strip().splitlines()[-1])
+
+    t0 = time.perf_counter()
+    c_p2p = cli(["--config_file", "configs/pose2pose.yaml", "--tag", "p2p"])
+    ae_chain = c_p2p["checkpoint"]
+    c_bp = cli(["--config_file", "configs/voice2pose_sdt_bp.yaml", "--tag", "bp"],
+               "VOICE2POSE.POSE_ENCODER.AE_CHECKPOINT", ae_chain, "TRAIN.VALIDATE", "True")
+    check(c_bp["steps"] == 4 and np.isfinite(c_bp["val_metrics"]["FGD_mu"]),
+          f"SDT-BP CLI line: {c_bp}")
+    c_test = cli(["--config_file", "configs/voice2pose_sdt_bp.yaml", "--tag", "test",
+                  "--test_only", "--checkpoint", c_bp["checkpoint"]],
+                 "VOICE2POSE.POSE_ENCODER.AE_CHECKPOINT", ae_chain)
+    test_keys = ("L2_dist", "lip_sync_error_n", "FGD_mu", "FGD_mu_logvar")
+    check(all(np.isfinite(c_test["metrics"].get(k, np.nan)) for k in test_keys),
+          f"test CLI line: {c_test}")
+    c_vae = cli(["--config_file", "configs/voice2pose_sdt_vae.yaml", "--tag", "vae"],
+                "VOICE2POSE.POSE_ENCODER.AE_CHECKPOINT", ae_chain)
+    from speechdrivestemplates_tpu_torch.utils.weights import read_pth
+
+    check(torch.equal(read_pth(c_vae["checkpoint"])["clips_code"],
+                      read_pth(ae_chain)["clip_code_mu"]),
+          "SDT-VAE's checkpoint does not hold the Pose2Pose bank unchanged")
+    chain_s = time.perf_counter() - t0
+    chain_line["chain"].update(cli_test_metrics=c_test["metrics"], cli_seconds=chain_s)
+    print(f"[chain-cli] pose2pose -> SDT-BP (AE_CHECKPOINT, validation) -> --test_only -> "
+          f"SDT-VAE, 2 epochs each, in {chain_s:.1f} s; test metrics "
+          f"{ {k: round(c_test['metrics'][k], 4) for k in test_keys} }; the SDT-VAE "
+          f"checkpoint holds the Pose2Pose bank unchanged", flush=True)
+
     # ---- summary -----------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -639,6 +822,7 @@ def main() -> None:
     print(json.dumps({"kernels": [{k: report[n][k] for k in keys}
                                   for n in ("mel", "conv1", "stem", "shift_probe")]}))
     print(json.dumps(train_line))
+    print(json.dumps(chain_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """PyTorch / CUDA port of the Speech Drives Templates system for NVIDIA Hopper.
 
 A package of its own beside ``speechdrivestemplates_tpu`` (the JAX reference,
-which it never imports). It trains and serves SDT-BP:
+which it never imports). It trains Pose2Pose, SDT-BP and SDT-VAE, tests them,
+and serves SDT-BP:
 
     audio (B, L) f32 -> mel (B, 80, L//160+1)          ops/mel.py   (CUDA kernel)
       -> SequenceGeneratorCNN                          models/      (stem: ops/conv1.py,
@@ -11,13 +12,18 @@ which it never imports). It trains and serves SDT-BP:
       -> normalized poses (B, T, 2, K)
       -> speaker statistics -> pixel-space poses       ops/pose.py
 
-Training (``pipelines/``): ``voice2pose.train_step`` (L1 + clip-code KL, Adam
-on the generator and the code bank, the frozen ``PoseSeqEncoder``'s BN drift)
-and ``trainer.train`` (epochs over ``datasets/gesture_dataset.py``, reference-
+Training and evaluation (``pipelines/``): ``voice2pose.train_step`` (L1 +
+clip-code KL, Adam on the generator and a learned bank, or SDT-VAE's frozen
+Pose2Pose bank; the frozen ``PoseSeqEncoder``'s BN drift), ``voice2pose.
+eval_step`` (the kernels above in eval mode, the FGD features),
+``pose2pose.train_step`` / ``eval_step`` (the VAE whose encoder and bank the
+Voice2Pose models take), and ``trainer`` (epochs over
+``datasets/gesture_dataset.py``, validation, test runs with FGD, reference-
 layout ``.pth`` checkpoints).
 
 Entry points run on the card unless the caller passes ``device="cpu"``:
-``python -m speechdrivestemplates_tpu_torch.main`` (training),
+``python -m speechdrivestemplates_tpu_torch.main`` (training and
+``--test_only``), ``chain_e2e`` (the paper's chain at ``bench_e2e.py``'s budget),
 ``serving.build_serving_fn``, ``python -m speechdrivestemplates_tpu_torch.serving``
 and ``models.build_model``. Three more measure the card:
 ``profile_serving`` and ``profile_train`` (device time by kernel of the

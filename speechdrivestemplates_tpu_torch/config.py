@@ -2,15 +2,18 @@
 
 Names and defaults follow the JAX package's yacs tree (``cfg.VOICE2POSE.
 GENERATOR.NORM`` and so on) so a reader finds each key's counterpart; only the
-keys the ported slices read exist here. ``sdt_bp()`` is the flagship preset
-(``configs/voice2pose_sdt_bp.yaml`` with ``TRAIN.PRECISION='bf16'``);
-``apply_overrides`` merges a flat ``KEY VALUE`` list as yacs' ``merge_from_list``
-does.
+keys the ported slices read exist here. The presets stand for the repository's
+``configs/*.yaml`` (the port reads no YAML): ``sdt_bp()`` (the flagship,
+``configs/voice2pose_sdt_bp.yaml``), ``sdt_vae()`` and ``pose2pose()``, the
+Voice2Pose ones at ``TRAIN.PRECISION='bf16'``; ``preset_for_config_file`` picks
+one by the file's name. ``apply_overrides`` merges a flat ``KEY VALUE`` list as
+yacs' ``merge_from_list`` does.
 """
 
 from __future__ import annotations
 
 import ast
+import os
 from dataclasses import dataclass, field, fields, is_dataclass
 from typing import Optional
 
@@ -20,7 +23,10 @@ class ClipCodeConfig:
     DIMENSION: Optional[int] = None
     LR_SCALING: float = 1.0
     FRAME_VARIANT: bool = False
+    SAMPLE_FROM_NORMAL: bool = False
+    TEST_WITH_GT_CODE: bool = False
     EXTERNAL_CODE: bool = False
+    EXTERNAL_CODE_PTH: Optional[str] = None
 
 
 @dataclass
@@ -36,6 +42,7 @@ class GeneratorConfig:
 @dataclass
 class PoseEncoderConfig:
     NAME: Optional[str] = "PoseSeqEncoder"
+    AE_CHECKPOINT: Optional[str] = None  # a Pose2Pose .pth: the frozen encoder's weights
 
 
 @dataclass
@@ -53,6 +60,7 @@ class Voice2PoseConfig:
 
 @dataclass
 class AutoencoderConfig:
+    NAME: Optional[str] = None
     LEAKY_RELU: bool = True
     NORM: str = "BN"
     CODE_DIM: int = 32
@@ -61,6 +69,8 @@ class AutoencoderConfig:
 @dataclass
 class Pose2PoseConfig:
     AUTOENCODER: AutoencoderConfig = field(default_factory=AutoencoderConfig)
+    LAMBDA_REG: float = 1.0
+    LAMBDA_KL: float = 0.1
 
 
 @dataclass
@@ -86,8 +96,24 @@ class TrainConfig:
     WD: float = 0.0  # yacs' default is the int 0, which refuses `TRAIN.WD 1e-3`
     LR_SCHEDULER: bool = True
     VALIDATE: bool = True
+    NUM_RESULT_SAMPLE: int = 2  # result archives an epoch (TRAIN.SAVE_NPZ)
     CHECKPOINT_INTERVAL: int = 1  # epochs between checkpoint saves
     PRECISION: str = "fp32"  # 'fp32' | 'bf16': compute dtype of the conv stacks
+
+
+@dataclass
+class TestConfig:
+    BATCH_SIZE: int = 32
+    NUM_RESULT_SAMPLE: int = 8  # result archives per evaluation (TEST.SAVE_NPZ)
+    SAVE_VIDEO: bool = True
+    SAVE_NPZ: bool = True
+    MULTIPLE: int = 1  # each eval batch repeated this many times
+
+
+@dataclass
+class DemoConfig:
+    CODE_INDEX: Optional[int] = None  # a fixed bank row as every eval code
+    CODE_INDEX_B: Optional[int] = None  # the row it is interpolated towards
 
 
 @dataclass
@@ -100,21 +126,64 @@ class SysConfig:
 
 @dataclass
 class Config:
+    PIPELINE_TYPE: Optional[str] = None  # 'Voice2Pose' | 'Pose2Pose'
     VOICE2POSE: Voice2PoseConfig = field(default_factory=Voice2PoseConfig)
     POSE2POSE: Pose2PoseConfig = field(default_factory=Pose2PoseConfig)
     DATASET: DatasetConfig = field(default_factory=DatasetConfig)
     TRAIN: TrainConfig = field(default_factory=TrainConfig)
+    TEST: TestConfig = field(default_factory=TestConfig)
+    DEMO: DemoConfig = field(default_factory=DemoConfig)
     SYS: SysConfig = field(default_factory=SysConfig)
 
 
-def sdt_bp(speaker: str = "oliver", precision: str = "bf16") -> Config:
-    """SDT-BP: SequenceGeneratorCNN with a 32-d clip code, IN, leaky ReLU."""
+def _voice2pose(speaker: Optional[str], precision: str, external_code: bool) -> Config:
     cfg = Config()
+    cfg.PIPELINE_TYPE = "Voice2Pose"
     cfg.VOICE2POSE.GENERATOR.NAME = "SequenceGeneratorCNN"
     cfg.VOICE2POSE.GENERATOR.CLIP_CODE.DIMENSION = 32
+    cfg.VOICE2POSE.GENERATOR.CLIP_CODE.EXTERNAL_CODE = external_code
     cfg.DATASET.SPEAKER = speaker
     cfg.TRAIN.PRECISION = precision
     return cfg
+
+
+def sdt_bp(speaker: Optional[str] = "oliver", precision: str = "bf16") -> Config:
+    """SDT-BP: SequenceGeneratorCNN with a learned bank of 32-d clip codes, IN,
+    leaky ReLU (``configs/voice2pose_sdt_bp.yaml``)."""
+    return _voice2pose(speaker, precision, external_code=False)
+
+
+def sdt_vae(speaker: Optional[str] = "oliver", precision: str = "bf16") -> Config:
+    """SDT-VAE: SDT-BP's generator on a frozen bank, a Pose2Pose checkpoint's
+    ``clip_code_mu`` (``configs/voice2pose_sdt_vae.yaml``)."""
+    return _voice2pose(speaker, precision, external_code=True)
+
+
+def pose2pose(speaker: Optional[str] = "oliver", precision: str = "fp32") -> Config:
+    """The Pose2Pose VAE (``configs/pose2pose.yaml``): its encoder is the FGD
+    feature encoder, its ``clip_code_mu`` bank SDT-VAE's templates."""
+    cfg = Config()
+    cfg.PIPELINE_TYPE = "Pose2Pose"
+    cfg.POSE2POSE.AUTOENCODER.NAME = "Autoencoder"
+    cfg.DATASET.SPEAKER = speaker
+    cfg.TRAIN.PRECISION = precision
+    return cfg
+
+
+PRESETS = {"voice2pose_sdt_bp": sdt_bp, "voice2pose_sdt_vae": sdt_vae,
+           "pose2pose": pose2pose}
+
+
+def preset_for_config_file(path: str) -> Config:
+    """The preset named like ``configs/<name>.yaml`` (the file is not read)."""
+    name = os.path.splitext(os.path.basename(path))[0]
+    if name == "voice2pose_s2g":
+        raise NotImplementedError("configs/voice2pose_s2g.yaml (s2g-GAN) is not ported "
+                                  "yet: ROADMAP.md queue A, item 11")
+    if name not in PRESETS:
+        raise ValueError(f"no preset for config file {path!r}; the port has "
+                         f"{sorted(f'configs/{n}.yaml' for n in PRESETS)}")
+    return PRESETS[name]()
 
 
 def _decode(value: str):

@@ -1,14 +1,15 @@
-"""The train split of a speaker directory, and its batch schedule.
+"""The train and val splits of a speaker directory, and the train schedule.
 
-Counterpart of the JAX package's ``datasets/gesture_dataset.py``, train split
-only. A speaker directory holds one npz per clip and ``processed_137.csv``,
-whose ``dataset`` column marks the train rows (``'train'``). An item is the
+Counterpart of the JAX package's ``datasets/gesture_dataset.py`` (its
+``'train'`` and ``'val'`` splits). A speaker directory holds one npz per clip
+and ``processed_137.csv``, whose ``dataset`` column marks the train rows
+(``'train'``) and the val rows (``'dev'``). An item is the
 clip's audio cropped or zero-padded to whole video frames, its first
 NUM_FRAMES poses taken to 121 keypoints, re-rooted per part and z-scored with
-the speaker's parted statistics, its row index (``clip_index``, the row of the
-clip-code bank) and those statistics.
+the speaker's parted statistics, its row index in the split (``clip_index``,
+for the train split the row of the clip-code bank) and those statistics.
 
-``EpochBatches`` is the JAX loader's batch schedule, a ``RandomState(seed +
+``EpochBatches`` is the JAX loader's train schedule, a ``RandomState(seed +
 epoch)`` shuffle of the row indices in full batches only, so a port run and a
 JAX run see the same batches (``pipelines.trainer.train_loader`` feeds it to
 ``torch.utils.data.DataLoader``).
@@ -28,17 +29,23 @@ from ..utils.audio import crop_pad_audio, parse_audio_length
 from .speakers_stat import get_speaker_stat
 
 
-class GestureDataset:
-    """The train clips of ``root_dir/<speaker>`` (``'a+b'`` joins speakers)."""
+SPLIT_ROWS = {"train": "train", "val": "dev"}
 
-    def __init__(self, root_dir: str, speaker: str, cfg):
+
+class GestureDataset:
+    """The ``split`` ('train' or 'val') clips of ``root_dir/<speaker>``
+    (``'a+b'`` joins speakers)."""
+
+    def __init__(self, root_dir: str, speaker: str, cfg, split: str = "train"):
         if speaker is None:
             raise ValueError("DATASET.SPEAKER is not set")
+        if split not in SPLIT_ROWS:
+            raise ValueError(f"unknown split {split!r}: 'train' or 'val'")
         if not cfg.DATASET.HIERARCHICAL_POSE:
             raise NotImplementedError(
                 "DATASET.HIERARCHICAL_POSE False (global poses, whose FGD path "
                 "re-normalizes parted -> global) is not ported yet: ROADMAP.md "
-                "queue A, item 10")
+                "queue A, item 11")
         self.cfg = cfg.DATASET
         self.clips: List[Dict[str, str]] = []
         for sp in speaker.replace("+", " ").split():
@@ -48,7 +55,7 @@ class GestureDataset:
                 raise FileNotFoundError(f"No csv file: {path}")
             with open(path, newline="") as f:
                 self.clips += [dict(row, _dir=sp_dir) for row in csv.DictReader(f)
-                               if row["dataset"] == "train"]
+                               if row["dataset"] == SPLIT_ROWS[split]]
         if self.cfg.SUBSET is not None:
             self.clips = self.clips[: self.cfg.SUBSET]
         self.audio_length, self.num_frames = parse_audio_length(

@@ -1,15 +1,20 @@
-"""Train SDT-BP with the port from a speaker directory:
+"""Train or test with the port from a speaker directory:
 
-    python -m speechdrivestemplates_tpu_torch.main [--device cuda|cpu] [--tag T] [KEY VALUE ...]
+    python -m speechdrivestemplates_tpu_torch.main [--config_file configs/NAME.yaml]
+        [--test_only --checkpoint CKPT.pth] [--device cuda|cpu] [--tag T] [KEY VALUE ...]
 
-The ``sdt_bp()`` preset (bf16) with the ``KEY VALUE`` overrides of
-``config.apply_overrides``, e.g. ``DATASET.ROOT_DIR datasets/speakers
-DATASET.SPEAKER oliver TRAIN.NUM_EPOCHS 100``. Validation and videos are not
-ported yet, so ``TRAIN.VALIDATE False TRAIN.SAVE_VIDEO False`` are required.
-Runs on the card unless ``--device cpu`` is given, and raises without one.
-Prints one JSON line at the end: the steps taken, the last losses and the
-last checkpoint, which ``python -m speechdrivestemplates_tpu_torch.serving``
-loads.
+``--config_file`` picks the preset of that name (``config.preset_for_config_file``:
+``configs/pose2pose.yaml``, ``configs/voice2pose_sdt_bp.yaml``,
+``configs/voice2pose_sdt_vae.yaml``; the file itself is not read), SDT-BP
+without one; the ``KEY VALUE`` overrides of ``config.apply_overrides`` follow,
+e.g. ``DATASET.ROOT_DIR datasets/speakers TRAIN.NUM_EPOCHS 100``. Videos are
+not ported yet, so ``TRAIN.SAVE_VIDEO False`` is required, and ``TEST.SAVE_VIDEO
+False`` where the run evaluates (``--test_only``, or ``TRAIN.VALIDATE`` True).
+``--test_only`` evaluates ``--checkpoint`` on the val split instead of training
+(it takes precedence, as in the JAX ``main.py``). Runs on the card unless
+``--device cpu`` is given, and raises without one. Prints one JSON line at the
+end: a training run's steps, last losses and last checkpoint (which the serving
+command line loads), or a test run's metrics.
 """
 
 from __future__ import annotations
@@ -18,27 +23,40 @@ import argparse
 import json
 import logging
 
-from .config import apply_overrides, sdt_bp
-from .pipelines.trainer import train
+from .config import apply_overrides, preset_for_config_file, sdt_bp
+from .pipelines.trainer import test, train
 from .utils.device import resolve_device
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m speechdrivestemplates_tpu_torch.main",
-                                 description="train SDT-BP (the port, PyTorch/CUDA)")
+                                 description="train or test (the port, PyTorch/CUDA)")
+    ap.add_argument("--config_file", default="", metavar="FILE",
+                    help="configs/<name>.yaml: the preset of that name (default SDT-BP)")
+    ap.add_argument("--test_only", action="store_true",
+                    help="evaluate --checkpoint on the val split instead of training")
+    ap.add_argument("--checkpoint", default=None, help="the .pth that --test_only evaluates")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--tag", default="sdt_bp", help="name of the run's output directory")
     ap.add_argument("opts", nargs="*", metavar="KEY VALUE", help="config overrides")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if args.test_only and not args.checkpoint:
+        ap.error("--test_only needs --checkpoint")
+    if args.checkpoint and not args.test_only:
+        ap.error("--checkpoint is read by --test_only only")
     try:
-        cfg = apply_overrides(sdt_bp(), args.opts)
+        cfg = preset_for_config_file(args.config_file) if args.config_file else sdt_bp()
+        cfg = apply_overrides(cfg, args.opts)
     except (KeyError, ValueError) as e:
         ap.error(str(e))
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s [%(levelname)-0.5s] %(message)s")
-    summary = train(cfg, args.tag, device)
+    if args.test_only:
+        summary = test(cfg, args.checkpoint, args.tag, device)
+    else:
+        summary = train(cfg, args.tag, device)
     print(json.dumps(summary))
     return summary
 

@@ -8,14 +8,15 @@ from typing import Optional
 import torch
 
 from ..utils.device import resolve_device
-from .autoencoder import PoseSeqEncoder
+from .autoencoder import Autoencoder, PoseSeqDecoder, PoseSeqEncoder
 from .generator import AudioEncoder, SequenceGeneratorCNN, UNet1D
 
 MODELS = {"SequenceGeneratorCNN": SequenceGeneratorCNN,
-          "PoseSeqEncoder": PoseSeqEncoder}
+          "PoseSeqEncoder": PoseSeqEncoder,
+          "Autoencoder": Autoencoder}
 
-__all__ = ["AudioEncoder", "PoseSeqEncoder", "SequenceGeneratorCNN", "UNet1D",
-           "build_model", "compute_dtype"]
+__all__ = ["AudioEncoder", "Autoencoder", "PoseSeqDecoder", "PoseSeqEncoder",
+           "SequenceGeneratorCNN", "UNet1D", "build_model", "compute_dtype"]
 
 
 def compute_dtype(cfg) -> torch.dtype:

@@ -96,6 +96,17 @@ def _kaiming_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
         w.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
 
 
+def lecun_conv1x1(c_in: int, c_out: int, generator: torch.Generator) -> nn.Conv1d:
+    """A 1x1 Conv1d with bias, initialized as flax ``nn.Conv`` is: LeCun normal
+    truncated at 2 sigma, zero bias (the output layer of the pose decoders)."""
+    out = nn.Conv1d(c_in, c_out, 1, bias=True)
+    std = math.sqrt(1.0 / c_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(out.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+        out.bias.zero_()
+    return out
+
+
 class ConvNormRelu(nn.Module):
     """k3 s1 p1 by default, k4 s2 p1 when ``downsample``; no conv bias.
 
@@ -110,9 +121,11 @@ class ConvNormRelu(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if norm not in ("IN", "BN") or (norm == "BN" and conv_type != "1d"):
-            raise NotImplementedError(f"norm {norm!r} on a {conv_type} conv: the port "
-                                      "has IN (1d, 2d) and BN (1d)")
+        if norm not in ("IN", "BN"):
+            raise ValueError(f"norm {norm!r}: 'IN' or 'BN'")
+        if norm == "BN" and conv_type != "1d":
+            raise NotImplementedError("BN on a 2d conv (s2g's generator) is not ported yet: "
+                                      "ROADMAP.md queue A, item 11")
         if kernel_size is None:
             kernel_size, stride, padding = (4, 2, 1) if downsample else (3, 1, 1)
         conv = {"1d": nn.Conv1d, "2d": nn.Conv2d}[conv_type]

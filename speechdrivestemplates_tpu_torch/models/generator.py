@@ -10,7 +10,6 @@ load with ``strict=True``. Inside, 2D tensors are (B, C, H, W) and 1D tensors
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -19,7 +18,7 @@ import torch.nn.functional as F
 
 from ..ops import stem as stem_ops
 from ..ops.resize import interpolate_bilinear, interpolate_linear_time
-from .blocks import ConvNormRelu
+from .blocks import ConvNormRelu, lecun_conv1x1
 
 # (out channels, extra ConvNormRelu arguments) of the audio encoder's 8 layers;
 # kernel tuples are (H = mel, W = time)
@@ -120,13 +119,7 @@ class SequenceGeneratorCNN(nn.Module):
         self.dtype = dtype
         self.audio_encoder = AudioEncoder(norm, leaky, dtype, generator)
         self.unet = UNet1D(256 + (code_dim or 0), norm, leaky, dtype, generator)
-        out = nn.Conv1d(256, 2 * num_landmarks, 1, bias=True)
-        # flax nn.Conv default: lecun normal (truncated at 2 sigma), zero bias
-        std = math.sqrt(1.0 / 256) / 0.87962566103423978
-        with torch.no_grad():
-            nn.init.trunc_normal_(out.weight, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
-            out.bias.zero_()
+        out = lecun_conv1x1(256, 2 * num_landmarks, generator)
         self.decoder = nn.Sequential(
             *[ConvNormRelu("1d", 256, 256, norm=norm, leaky=leaky, dtype=dtype,
                            generator=generator) for _ in range(4)], out)

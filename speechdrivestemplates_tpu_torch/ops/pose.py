@@ -116,13 +116,28 @@ def get_final_results(poses, mean, std, scale_factor, hierarchical: bool,
     return poses * scale_factor.reshape(-1, 1, 1, 1)
 
 
-def step_metrics(pred: torch.Tensor, gt: torch.Tensor) -> dict:
-    """A train step's metrics on final (pixel-space) poses (B, T, 2, K):
+def step_metrics(pred: torch.Tensor, gt: torch.Tensor, multiple: int = 1) -> dict:
+    """A step's metrics on final (pixel-space) poses (B, T, 2, K):
     ``L2_dist``, the mean keypoint distance, and ``lip_sync_error_n``, the
-    mean gap of the lip openings normalized by each clip's widest true one."""
+    mean gap of the lip openings normalized by each clip's widest true one.
+    A batch of ``multiple`` > 1 repeats (``multiply_batch``) also gives the
+    least and the largest of the repeats' mean distances, ``L2_dist_min`` and
+    ``L2_dist_max``."""
     l2 = torch.linalg.vector_norm(pred - gt, dim=2)
     lip_pred = torch.linalg.vector_norm(pred[..., LIP_LOWER] - pred[..., LIP_UPPER], dim=-1)
     lip_gt = torch.linalg.vector_norm(gt[..., LIP_LOWER] - gt[..., LIP_UPPER], dim=-1)
     denom = lip_gt.amax(-1, keepdim=True) + 1e-4
     lip_err = (lip_pred / denom - lip_gt / denom).abs()
-    return {"L2_dist": l2.mean(), "lip_sync_error_n": lip_err.mean()}
+    out = {"L2_dist": l2.mean(), "lip_sync_error_n": lip_err.mean()}
+    if multiple > 1:
+        per = l2.reshape(multiple, -1).mean(1)
+        out["L2_dist_min"], out["L2_dist_max"] = per.min(), per.max()
+    return out
+
+
+def multiply_batch(batch, multiple: int):
+    """A batch (nested dicts of tensors) repeated ``multiple`` times along the
+    leading axis, the whole batch after itself (the JAX ``multiply_batch``)."""
+    if isinstance(batch, dict):
+        return {k: multiply_batch(v, multiple) for k, v in batch.items()}
+    return batch.repeat(multiple, *([1] * (batch.ndim - 1)))

@@ -1,0 +1,158 @@
+"""The Pose2Pose VAE: train step, eval step, checkpoint.
+
+Counterpart of the JAX package's ``pipelines/pose2pose.py``: encode the
+ground-truth poses, reparameterize, decode; L1 x LAMBDA_REG plus the
+elementwise KL to N(0, 1) x LAMBDA_KL; Adam on the autoencoder (TRAIN.WD as
+L2), MultiStepLR as for Voice2Pose. After each train step the per-clip banks
+``clip_code_mu`` / ``clip_code_logvar`` (N_train, code_dim), zero at init and
+never optimized, take the step's mu and logvar at the batch's ``clip_index``.
+They persist in the checkpoint, whose encoder is Voice2Pose's frozen FGD
+encoder (``VOICE2POSE.POSE_ENCODER.AE_CHECKPOINT``) and whose ``clip_code_mu``
+is SDT-VAE's template bank. The step runs poses only: no kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..models import build_model
+from ..ops.pose import get_final_results, multiply_batch, step_metrics
+from ..utils.device import resolve_device
+from ..utils.weights import check_bank_rows, read_pth
+from .voice2pose import ADAM, eval_mode, make_scheduler, mel_buffers, save_pth
+
+
+class Pose2PoseTrainState:
+    """The autoencoder, its Adam and scheduler, the two banks and the step
+    count (the JAX package's ``Pose2Pose.state``). Weights come from a
+    ``torch.Generator`` seeded with SYS.SEED, the reparameterization noise from
+    another on the device. ``num_train`` None (a test run) leaves the banks
+    for a checkpoint to fill."""
+
+    def __init__(self, cfg, num_train: Optional[int], device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.num_train = num_train
+        gen = torch.Generator().manual_seed(cfg.SYS.SEED)
+        self.ae = build_model(cfg.POSE2POSE.AUTOENCODER.NAME, cfg, self.device,
+                              generator=gen).train()
+        shape = (num_train or 1, cfg.POSE2POSE.AUTOENCODER.CODE_DIM)
+        self.clip_code_mu = torch.zeros(shape, device=self.device)
+        self.clip_code_logvar = torch.zeros(shape, device=self.device)
+        self.opt = torch.optim.Adam(self.ae.parameters(), lr=cfg.TRAIN.LR,
+                                    weight_decay=cfg.TRAIN.WD, **ADAM)
+        self.schedulers = [s for s in (make_scheduler(self.opt, cfg),) if s]
+        self.rng = torch.Generator(device=self.device).manual_seed(cfg.SYS.SEED)
+        self.step = 0
+
+    def load(self, parts: Dict[str, torch.Tensor]) -> None:
+        """Load ``{"autoencoder", "clip_code_mu", "clip_code_logvar"}`` (the
+        form of ``utils.weights.pose2pose_state_from_jax``), strictly."""
+        self.ae.load_state_dict(parts["autoencoder"], strict=True)
+        for k in ("clip_code_mu", "clip_code_logvar"):
+            check_bank_rows(parts[k], self.num_train)
+            setattr(self, k, parts[k].float().to(self.device).clone())
+
+    def load_pth(self, path: str) -> None:
+        """Weights and banks from a reference-layout Pose2Pose checkpoint."""
+        sd = read_pth(path)
+        self.load({"autoencoder": {k[len("ae."):]: v for k, v in sd.items()
+                                   if k.startswith("ae.")},
+                   "clip_code_mu": sd["clip_code_mu"],
+                   "clip_code_logvar": sd["clip_code_logvar"]})
+
+    def end_epoch(self) -> None:
+        for s in self.schedulers:
+            s.step()
+
+    def learning_rates(self) -> Dict[str, float]:
+        return {"optimizer": self.opt.param_groups[0]["lr"]}
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The reference ``Pose2PoseModel`` keys (without ``module.``): the mel
+        buffers, ``ae.*``, ``clip_code_mu`` and ``clip_code_logvar``."""
+        sd = mel_buffers()
+        sd.update({f"ae.{k}": v for k, v in self.ae.state_dict().items()})
+        sd["clip_code_mu"], sd["clip_code_logvar"] = self.clip_code_mu, self.clip_code_logvar
+        return sd
+
+    def save_checkpoint(self, path: str, epoch: int, step: int) -> None:
+        save_pth(path, self.state_dict(), epoch, step)
+
+
+def pose2pose_losses(pred: torch.Tensor, gt: torch.Tensor, mu: torch.Tensor,
+                     logvar: torch.Tensor, cfg) -> Dict[str, torch.Tensor]:
+    """``{"reg_loss", "kl_loss", "loss"}``: L1 x LAMBDA_REG and the mean
+    elementwise KL of N(mu, exp(logvar)) to N(0, 1) x LAMBDA_KL."""
+    reg = (pred - gt).abs().mean() * cfg.POSE2POSE.LAMBDA_REG
+    kl = 0.5 * (-logvar + mu ** 2 + logvar.exp() - 1.0).mean() * cfg.POSE2POSE.LAMBDA_KL
+    return {"reg_loss": reg, "kl_loss": kl, "loss": reg + kl}
+
+
+def _final(batch, poses, cfg):
+    stat = batch["speaker_stat"]
+    return get_final_results(poses, stat["mean"], stat["std"], stat["scale_factor"],
+                             cfg.DATASET.HIERARCHICAL_POSE, cfg.DATASET.NUM_LANDMARKS)
+
+
+def _to(batch, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev, non_blocking=True)
+            for k, v in batch.items()}
+
+
+def train_step(state: Pose2PoseTrainState, batch: Dict[str, object],
+               noise: Optional[torch.Tensor] = None
+               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """One optimization step; returns ``(losses, results)`` as device tensors.
+    ``noise`` (B, code_dim) replaces the reparameterization's draw."""
+    cfg = state.cfg
+    b = _to({k: batch[k] for k in ("poses", "clip_index", "speaker_stat")}, state.device)
+    gt = b["poses"]
+    pred, mu, logvar = state.ae(gt, cfg.DATASET.NUM_FRAMES, noise=noise,
+                                generator=state.rng)
+    losses = pose2pose_losses(pred, gt, mu, logvar, cfg)
+    state.opt.zero_grad(set_to_none=True)
+    losses["loss"].backward()
+    state.opt.step()
+
+    with torch.no_grad():
+        mu, logvar = mu.detach(), logvar.detach()
+        state.clip_code_mu[b["clip_index"]] = mu.float()
+        state.clip_code_logvar[b["clip_index"]] = logvar.float()
+        losses = {k: v.detach() for k, v in losses.items()}
+        final = [_final(b, p, cfg) for p in (pred.detach(), gt)]
+        losses.update(step_metrics(*final))
+    state.step += 1
+    return losses, {"poses_pred_batch": final[0], "poses_gt_batch": final[1],
+                    "clip_code_mu": mu, "clip_code_logvar": logvar}
+
+
+@torch.no_grad()
+def eval_step(state: Pose2PoseTrainState, batch: Dict[str, object],
+              external_code: Optional[torch.Tensor] = None,
+              noise: Optional[torch.Tensor] = None
+              ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The autoencoder in eval mode (BN running statistics) on a batch
+    repeated TEST.MULTIPLE times; the reparameterization still samples, as in
+    the JAX step. With ``external_code`` (B, code_dim) it only decodes that
+    code, and computes no loss."""
+    cfg, multiple = state.cfg, state.cfg.TEST.MULTIPLE
+    b = _to({k: batch[k] for k in ("poses", "speaker_stat") if k in batch}, state.device)
+    if multiple > 1:
+        b = multiply_batch(b, multiple)
+    if external_code is not None:
+        external_code = external_code.to(state.device)
+    with eval_mode(state.ae):
+        pred, mu, logvar = state.ae(b.get("poses"), cfg.DATASET.NUM_FRAMES,
+                                    external_code, noise=noise, generator=state.rng)
+    results = {"poses_pred_batch": _final(b, pred, cfg), "clip_code_mu": mu,
+               "clip_code_logvar": logvar}
+    losses: Dict[str, torch.Tensor] = {}
+    if "poses" in b and external_code is None:
+        losses = pose2pose_losses(pred, b["poses"], mu, logvar, cfg)
+        results["poses_gt_batch"] = _final(b, b["poses"], cfg)
+        losses.update(step_metrics(results["poses_pred_batch"], results["poses_gt_batch"],
+                                   multiple))
+    return losses, results

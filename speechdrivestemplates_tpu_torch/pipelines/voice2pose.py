@@ -1,32 +1,45 @@
-"""The SDT-BP train step: mel -> generator -> L1 + clip-code KL -> Adam.
+"""The Voice2Pose train and eval steps: mel -> generator -> L1 + clip-code KL.
 
-Counterpart of the JAX package's ``Voice2Pose._train_step_body``
-(``pipelines/voice2pose.py``), for the SDT-BP configuration: a
-``SequenceGeneratorCNN`` with a learned bank of per-clip template codes, and
-the frozen ``PoseSeqEncoder`` whose train-mode BatchNorm statistics drift
-with every step (its FGD features are evaluated later with them).
+Counterpart of the JAX package's ``Voice2Pose`` (``pipelines/voice2pose.py``)
+for the SDT configurations: a ``SequenceGeneratorCNN`` conditioned on a
+template code from a bank of per-clip codes, and the frozen ``PoseSeqEncoder``
+whose FGD features are taken in eval, and whose train-mode BatchNorm
+statistics drift with every train step. The bank is learned (SDT-BP, zero
+init, (N_train, 32), or (N_train, 32, T) per frame with CLIP_CODE.
+FRAME_VARIANT) or a Pose2Pose checkpoint's ``clip_code_mu``, frozen, with no
+optimizer (SDT-VAE, CLIP_CODE.EXTERNAL_CODE). The frozen encoder starts from a
+seeded init, or from a Pose2Pose checkpoint's encoder
+(VOICE2POSE.POSE_ENCODER.AE_CHECKPOINT).
 
-One step, in order (``train_step``):
+One train step, in order (``train_step``):
   1. the mel spectrogram of the batch's audio (the CUDA kernel on the card;
      audio takes no gradient);
   2. the generator in train mode (its stem as plain cuDNN convs under
      autograd), with codes ``clips_code[clip_index]``;
   3. L1 x LAMBDA_REG, plus the KL of the codes' batch statistics to N(0, 1)
-     x LAMBDA_CLIP_KL, skipped while any code variance is exactly 0 (the first
-     steps after the bank's zero init);
+     x LAMBDA_CLIP_KL (over the (B*T, dim) codes of a frame-variant bank),
+     skipped while any code variance is exactly 0 (the first steps after the
+     bank's zero init);
   4. backward, then torch Adam steps: the generator with TRAIN.WD as L2 added
-     to the gradient, the bank at LR x LR_SCALING with no decay (its gradient
-     is dense, so rows not in the batch move by their moments);
+     to the gradient, a learned bank at LR x LR_SCALING with no decay (its
+     gradient is dense, so rows not in the batch move by their moments);
   5. the pose encoder in train mode under ``no_grad`` on the prediction, then
      on the ground truth: two BN statistics updates, no parameter update;
   6. L2 and lip-sync metrics on pixel-space poses.
 The learning rates follow MultiStepLR at epochs [N-10, N-2], gamma 0.1, when
 TRAIN.LR_SCHEDULER is set (``make_scheduler``; ``end_epoch`` steps it).
+
+One eval step (``eval_step``, the JAX ``_build_eval_step``): the mel, the
+generator in eval mode (on the card: the mel kernel, then the conv1 and stem
+kernels, as serving runs them) on the code ``condition_code`` picks, the
+losses, the pose encoder in eval mode on the prediction and the ground truth
+(mu and logvar: the FGD features), the metrics.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import contextlib
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,8 +47,10 @@ import torch.nn as nn
 
 from ..models import build_model
 from ..ops.mel import _mel_filterbank_np, mel_spectrogram, mel_spectrogram_plain
-from ..ops.pose import get_final_results, step_metrics
+from ..ops.pose import get_final_results, multiply_batch, step_metrics
 from ..utils.device import resolve_device
+from ..utils.weights import (check_bank_rows, external_code_bank, pose_encoder_from_ae_pth,
+                             read_pth)
 
 ADAM = dict(betas=(0.9, 0.999), eps=1e-8)
 
@@ -48,10 +63,6 @@ def check_supported(cfg) -> None:
             (cfg.VOICE2POSE.POSE_DISCRIMINATOR.NAME is not None, 11),
         "VOICE2POSE.GENERATOR.CLIP_CODE.DIMENSION None (a code-less generator, s2g)":
             (gcfg.CLIP_CODE.DIMENSION is None, 11),
-        "VOICE2POSE.GENERATOR.CLIP_CODE.EXTERNAL_CODE (SDT-VAE's Pose2Pose bank)":
-            (gcfg.CLIP_CODE.EXTERNAL_CODE, 12),
-        "VOICE2POSE.GENERATOR.CLIP_CODE.FRAME_VARIANT (per-frame codes)":
-            (gcfg.CLIP_CODE.FRAME_VARIANT, 12),
     }
     for what, (on, item) in todo.items():
         if on:
@@ -71,61 +82,136 @@ def make_scheduler(optimizer: torch.optim.Optimizer, cfg):
                                                 gamma=0.1)
 
 
-class Voice2PoseTrainState:
-    """The trained modules, their optimizers and schedulers, and the step count
-    (the JAX package's ``Voice2Pose.state``). Weights come from a
-    ``torch.Generator`` seeded with SYS.SEED; the bank starts at zero."""
+def mel_buffers() -> Dict[str, torch.Tensor]:
+    """The reference models' ``mel_transfm`` buffers, as checkpoints carry them."""
+    return {"mel_transfm.spectrogram.window":
+                torch.from_numpy(np.hanning(401)[:400].astype(np.float32)),
+            "mel_transfm.mel_scale.fb":
+                torch.from_numpy(_mel_filterbank_np(16000, 512, 80, 55.0, 7500.0))}
 
-    def __init__(self, cfg, num_train: int, device="cuda"):
+
+def save_pth(path: str, state_dict: Dict[str, torch.Tensor], epoch: int, step: int) -> None:
+    """The reference checkpoint layout: ``{epoch, step, model_state_dict}``
+    with every key under ``module.``."""
+    torch.save({"epoch": int(epoch), "step": int(step),
+                "model_state_dict": {f"module.{k}": v.detach().cpu()
+                                     for k, v in state_dict.items()}}, path)
+
+
+@contextlib.contextmanager
+def eval_mode(*modules):
+    """Put ``modules`` (None skipped) in eval mode, and back as they were."""
+    modules = [m for m in modules if m is not None]
+    was = [m.training for m in modules]
+    for m in modules:
+        m.eval()
+    try:
+        yield
+    finally:
+        for m, w in zip(modules, was):
+            m.train(w)
+
+
+class Voice2PoseTrainState:
+    """The trained modules, their optimizers and schedulers, the template bank
+    and the step count (the JAX package's ``Voice2Pose.state``). Weights come
+    from a ``torch.Generator`` seeded with SYS.SEED, the eval codes' draws from
+    another on the device. ``num_train`` None (a test run) leaves the bank's
+    rows to the checkpoint."""
+
+    def __init__(self, cfg, num_train: Optional[int], device="cuda"):
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.num_train = num_train
         gen = torch.Generator().manual_seed(cfg.SYS.SEED)
         gcfg = cfg.VOICE2POSE.GENERATOR
+        cc = gcfg.CLIP_CODE
         self.generator = build_model(gcfg.NAME, cfg, self.device, generator=gen).train()
-        self.clips_code = nn.Parameter(torch.zeros(num_train, gcfg.CLIP_CODE.DIMENSION,
-                                                   device=self.device))
+        self.external_code = cc.EXTERNAL_CODE
+        if self.external_code:
+            path = cc.EXTERNAL_CODE_PTH or cfg.VOICE2POSE.POSE_ENCODER.AE_CHECKPOINT
+            if path is None:
+                raise ValueError("CLIP_CODE.EXTERNAL_CODE needs a Pose2Pose checkpoint: "
+                                 "CLIP_CODE.EXTERNAL_CODE_PTH or POSE_ENCODER.AE_CHECKPOINT")
+            self.clips_code = external_code_bank(path, num_train).to(self.device)
+        else:
+            shape = (num_train or 1, cc.DIMENSION) + (
+                (cfg.DATASET.NUM_FRAMES,) if cc.FRAME_VARIANT else ())
+            self.clips_code = nn.Parameter(torch.zeros(shape, device=self.device))
         self.pose_encoder = None
         if cfg.VOICE2POSE.POSE_ENCODER.NAME is not None:
             self.pose_encoder = build_model(cfg.VOICE2POSE.POSE_ENCODER.NAME, cfg,
                                             self.device, generator=gen)
             self.pose_encoder.train().requires_grad_(False)
+            ae_ckpt = cfg.VOICE2POSE.POSE_ENCODER.AE_CHECKPOINT
+            if ae_ckpt is not None:
+                self.pose_encoder.load_state_dict(
+                    pose_encoder_from_ae_pth(ae_ckpt, self.pose_encoder.state_dict()),
+                    strict=True)
         self.opt_g = torch.optim.Adam(self.generator.parameters(), lr=cfg.TRAIN.LR,
                                       weight_decay=cfg.TRAIN.WD, **ADAM)
-        self.opt_code = torch.optim.Adam([self.clips_code],
-                                         lr=cfg.TRAIN.LR * gcfg.CLIP_CODE.LR_SCALING, **ADAM)
+        self.opt_code = None if self.external_code else torch.optim.Adam(
+            [self.clips_code], lr=cfg.TRAIN.LR * cc.LR_SCALING, **ADAM)
         self.schedulers = [s for s in (make_scheduler(o, cfg)
-                                       for o in (self.opt_g, self.opt_code)) if s]
+                                       for o in (self.opt_g, self.opt_code) if o) if s]
+        self.rng = torch.Generator(device=self.device).manual_seed(cfg.SYS.SEED)
         self.step = 0
+
+    def _set_bank(self, bank: torch.Tensor) -> None:
+        check_bank_rows(bank, self.num_train)
+        bank = bank.float().to(self.device)
+        if self.external_code:
+            self.clips_code = bank.clone()
+        elif tuple(bank.shape) == tuple(self.clips_code.shape):
+            with torch.no_grad():
+                self.clips_code.copy_(bank)
+        elif self.num_train is None:  # a test run takes the checkpoint's rows
+            self.clips_code = nn.Parameter(bank.clone())
+        else:
+            raise ValueError(f"clip-code bank {tuple(bank.shape)}: this configuration "
+                             f"needs {tuple(self.clips_code.shape)}")
 
     def load(self, parts: Dict[str, object]) -> None:
         """Load ``{"generator", "clips_code", "pose_encoder"}`` (the form of
         ``utils.weights.state_from_jax``), strictly."""
         self.generator.load_state_dict(parts["generator"], strict=True)
-        bank = parts["clips_code"]
-        if tuple(bank.shape) != tuple(self.clips_code.shape):
-            raise ValueError(f"clip-code bank {tuple(bank.shape)}: this train split needs "
-                             f"{tuple(self.clips_code.shape)} (one code per clip)")
-        with torch.no_grad():
-            self.clips_code.copy_(bank)
+        self._set_bank(parts["clips_code"])
         if self.pose_encoder is not None:
             self.pose_encoder.load_state_dict(parts["pose_encoder"], strict=True)
+
+    def load_pth(self, path: str) -> None:
+        """Weights from a reference-layout Voice2Pose checkpoint, as the JAX
+        package's ``load_torch_pth`` takes them: the generator, the bank, and
+        the pose encoder where the checkpoint has one. Its ``pose_encoder.*``,
+        running statistics drifted by training included, win over an
+        AE_CHECKPOINT's encoder: they are what the reference's test run
+        evaluates FGD with."""
+        sd = read_pth(path)
+        self.generator.load_state_dict(
+            {k[len("netG."):]: v for k, v in sd.items() if k.startswith("netG.")},
+            strict=True)
+        if "clips_code" in sd:
+            self._set_bank(sd["clips_code"])
+        pe = {k[len("pose_encoder."):]: v for k, v in sd.items()
+              if k.startswith("pose_encoder.")}
+        if self.pose_encoder is not None and pe:
+            self.pose_encoder.load_state_dict(pe, strict=True)
 
     def end_epoch(self) -> None:
         for s in self.schedulers:
             s.step()
 
     def learning_rates(self) -> Dict[str, float]:
-        return {"G": self.opt_g.param_groups[0]["lr"],
-                "ClipCode": self.opt_code.param_groups[0]["lr"]}
+        lrs = {"G": self.opt_g.param_groups[0]["lr"]}
+        if self.opt_code is not None:
+            lrs["ClipCode"] = self.opt_code.param_groups[0]["lr"]
+        return lrs
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
         """The reference ``Voice2PoseModel`` keys (without ``module.``): the mel
         buffers, ``netG.*``, ``clips_code`` and ``pose_encoder.*``."""
-        sd = {"mel_transfm.spectrogram.window":
-                  torch.from_numpy(np.hanning(401)[:400].astype(np.float32)),
-              "mel_transfm.mel_scale.fb":
-                  torch.from_numpy(_mel_filterbank_np(16000, 512, 80, 55.0, 7500.0))}
+        sd = mel_buffers()
         sd.update({f"netG.{k}": v for k, v in self.generator.state_dict().items()})
         sd["clips_code"] = self.clips_code.detach()
         if self.pose_encoder is not None:
@@ -134,19 +220,18 @@ class Voice2PoseTrainState:
         return sd
 
     def save_checkpoint(self, path: str, epoch: int, step: int) -> None:
-        """The reference checkpoint layout: ``{epoch, step, model_state_dict}``
-        with every key under ``module.``."""
-        torch.save({"epoch": int(epoch), "step": int(step),
-                    "model_state_dict": {f"module.{k}": v.detach().cpu()
-                                         for k, v in self.state_dict().items()}}, path)
+        save_pth(path, self.state_dict(), epoch, step)
 
 
 def generator_losses(pred: torch.Tensor, gt: torch.Tensor, code: torch.Tensor,
                      cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``(G_loss, {"G_reg_loss", "G_clipcode_kl_loss", "G_loss"})`` for a
-    prediction, its target and the batch's (B, code_dim) codes."""
+    prediction, its target and the batch's (B, code_dim) codes, or (B,
+    code_dim, T) per-frame codes, whose KL is over the (B*T, code_dim) rows."""
     gcfg = cfg.VOICE2POSE.GENERATOR
     reg = (pred - gt).abs().mean() * gcfg.LAMBDA_REG
+    if code.ndim == 3:
+        code = code.transpose(1, 2).reshape(-1, code.shape[1])
     mu, var = code.mean(0), code.var(0, correction=1)
     safe = torch.where(var > 0, var, torch.ones_like(var))
     kl = 0.5 * (-torch.log(safe) + mu ** 2 + var - 1.0).mean() * gcfg.LAMBDA_CLIP_KL
@@ -170,11 +255,12 @@ def train_step(state: Voice2PoseTrainState, batch: Dict[str, object],
     code = state.clips_code[index]
     pred = state.generator(mel, cfg.DATASET.NUM_FRAMES, code)
     g_loss, losses = generator_losses(pred, gt, code, cfg)
-    state.opt_g.zero_grad(set_to_none=True)
-    state.opt_code.zero_grad(set_to_none=True)
+    optimizers = [o for o in (state.opt_g, state.opt_code) if o is not None]
+    for o in optimizers:
+        o.zero_grad(set_to_none=True)
     g_loss.backward()
-    state.opt_g.step()
-    state.opt_code.step()
+    for o in optimizers:
+        o.step()
 
     losses = {k: v.detach() for k, v in losses.items()}
     results: Dict[str, object] = {}
@@ -190,4 +276,73 @@ def train_step(state: Voice2PoseTrainState, batch: Dict[str, object],
         losses.update(step_metrics(*final))
     results.update(poses_pred_batch=final[0], poses_gt_batch=final[1])
     state.step += 1
+    return losses, results
+
+
+def condition_code(state: Voice2PoseTrainState, batch: Dict[str, torch.Tensor],
+                   interpolation_coeff: Optional[float] = None) -> torch.Tensor:
+    """The eval template codes of a device batch (the eval modes of the JAX
+    ``_condition_code``; a train step takes the bank rows at ``clip_index``).
+    The first mode set of: CLIP_CODE.SAMPLE_FROM_NORMAL (N(0, 1) codes),
+    CLIP_CODE.TEST_WITH_GT_CODE (the eval-mode pose encoder's mu of the ground
+    truth), DEMO.CODE_INDEX (that bank row for every sample, moved towards
+    DEMO.CODE_INDEX_B by ``interpolation_coeff``); else a bank row drawn
+    uniformly for each sample. Draws come from ``state.rng``."""
+    cfg, bank = state.cfg, state.clips_code.detach()
+    cc = cfg.VOICE2POSE.GENERATOR.CLIP_CODE
+    B = batch["audio"].shape[0]
+    if cc.SAMPLE_FROM_NORMAL:
+        return torch.randn(B, cc.DIMENSION, generator=state.rng, device=state.device)
+    if cc.TEST_WITH_GT_CODE:
+        if state.pose_encoder is None:
+            raise ValueError("CLIP_CODE.TEST_WITH_GT_CODE needs VOICE2POSE.POSE_ENCODER")
+        with eval_mode(state.pose_encoder):
+            return state.pose_encoder(batch["poses"])[0].float()
+    if cfg.DEMO.CODE_INDEX is not None:
+        code = bank[cfg.DEMO.CODE_INDEX][None].expand(B, *bank.shape[1:])
+        if interpolation_coeff is not None:
+            code_b = bank[cfg.DEMO.CODE_INDEX_B][None].expand(B, *bank.shape[1:])
+            code = code * (1 - interpolation_coeff) + code_b * interpolation_coeff
+        return code
+    idx = torch.randint(0, bank.shape[0], (B,), generator=state.rng, device=state.device)
+    return bank[idx]
+
+
+@torch.no_grad()
+def eval_step(state: Voice2PoseTrainState, batch: Dict[str, object],
+              fixed_code: Optional[torch.Tensor] = None, plain: bool = False
+              ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """One eval step on a batch repeated TEST.MULTIPLE times; returns
+    ``(losses, results)`` as device tensors: the losses and metrics where the
+    batch has ground truth, the pixel-space poses, the codes, and the pose
+    encoder's mu and logvar of prediction and ground truth. ``fixed_code``
+    replaces ``condition_code``'s; ``plain`` takes the plain mel and stem
+    even on the card (a reference)."""
+    cfg, dev = state.cfg, state.device
+    b = {k: ({kk: vv.to(dev, non_blocking=True) for kk, vv in v.items()}
+             if isinstance(v, dict) else v.to(dev, non_blocking=True))
+         for k, v in batch.items() if k in ("audio", "poses", "clip_index", "speaker_stat")}
+    if cfg.TEST.MULTIPLE > 1:
+        b = multiply_batch(b, cfg.TEST.MULTIPLE)
+    stat = b["speaker_stat"]
+
+    def final(p):
+        return get_final_results(p, stat["mean"], stat["std"], stat["scale_factor"],
+                                 cfg.DATASET.HIERARCHICAL_POSE, cfg.DATASET.NUM_LANDMARKS)
+
+    with eval_mode(state.generator, state.pose_encoder):
+        mel = (mel_spectrogram_plain if plain else mel_spectrogram)(b["audio"])
+        code = fixed_code.to(dev) if fixed_code is not None else condition_code(state, b)
+        pred = state.generator(mel, cfg.DATASET.NUM_FRAMES, code, plain=plain)
+        results = {"poses_pred_batch": final(pred), "condition_code": code}
+        losses: Dict[str, torch.Tensor] = {}
+        if "poses" in b:
+            gt = b["poses"]
+            _, losses = generator_losses(pred, gt, code, cfg)
+            if state.pose_encoder is not None:
+                mu_p, lv_p = state.pose_encoder(pred)
+                mu_g, lv_g = state.pose_encoder(gt)
+                results.update(mu_pred=mu_p, logvar_pred=lv_p, mu_gt=mu_g, logvar_gt=lv_g)
+            results["poses_gt_batch"] = final(gt)
+            losses.update(step_metrics(results["poses_pred_batch"], results["poses_gt_batch"]))
     return losses, results

@@ -52,6 +52,21 @@ def reverse_pose_encoder(path: Path) -> str:
     raise KeyError(f"unmapped pose-encoder path {path}")
 
 
+def reverse_autoencoder(path: Path) -> str:
+    """JAX autoencoder param path -> reference torch module path."""
+    if path[0] == "encoder":
+        return "encoder." + reverse_pose_encoder(path[1:])
+    if path[0] == "decoder":
+        sub = path[1]
+        if sub in ("d5", "d4", "d3", "d2", "d1"):
+            return f"decoder.{sub}"
+        if sub.startswith("block_"):
+            return f"decoder.blocks.{int(sub.rsplit('_', 1)[1])}"
+        if sub == "out":
+            return "decoder.blocks.4"
+    raise KeyError(f"unmapped autoencoder path {path}")
+
+
 def _module_from_jax(params: Dict[str, Any], batch_stats: Optional[Dict[str, Any]],
                      reverse: Callable[[Path], str],
                      dtype=np.float32) -> Dict[str, torch.Tensor]:
@@ -122,21 +137,75 @@ def state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
-def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
-    """The generator's state_dict out of a reference-layout checkpoint.
+def autoencoder_params_from_jax(params_ae: Dict[str, Any],
+                                batch_stats_ae: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``Autoencoder`` params and batch statistics -> the port's
+    ``Autoencoder`` state_dict (float32)."""
+    return _module_from_jax(params_ae, batch_stats_ae, reverse_autoencoder)
 
-    Keys are ``module.netG.<name>`` (or ``netG.<name>`` without the
-    DataParallel prefix); every other entry (mel buffers, clip codes, pose
-    encoder) is left out."""
-    prefix = "netG."
+
+def pose2pose_state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
+    """A JAX ``Pose2Pose.state`` (host arrays) -> ``{"autoencoder": state_dict,
+    "clip_code_mu": tensor, "clip_code_logvar": tensor}``
+    (``Pose2PoseTrainState.load``)."""
+    out = {"autoencoder": autoencoder_params_from_jax(state["params_ae"],
+                                                      state["batch_stats_ae"])}
+    for k in ("clip_code_mu", "clip_code_logvar"):
+        out[k] = torch.tensor(np.asarray(state[k], dtype=np.float32))
+    return out
+
+
+def read_pth(path: str) -> Dict[str, torch.Tensor]:
+    """A reference-layout checkpoint's ``model_state_dict`` (or a bare state
+    dict), with the DataParallel ``module.`` prefix taken off every key."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     msd = ckpt.get("model_state_dict", ckpt)
-    out = {}
-    for k, v in msd.items():
-        if k.startswith("module."):
-            k = k[len("module."):]
-        if k.startswith(prefix):
-            out[k[len(prefix):]] = v.float() if v.is_floating_point() else v
+    return {(k[len("module."):] if k.startswith("module.") else k): v for k, v in msd.items()}
+
+
+def _under(sd: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    return {k[len(prefix):]: (v.float() if v.is_floating_point() else v)
+            for k, v in sd.items() if k.startswith(prefix)}
+
+
+def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
+    """The generator's state_dict (``netG.*``) out of a reference-layout
+    checkpoint; every other entry is left out."""
+    out = _under(read_pth(path), "netG.")
     if not out:
-        raise KeyError(f"no {prefix!r} entries in {path}")
+        raise KeyError(f"no 'netG.' entries in {path}")
     return out
+
+
+def pose_encoder_from_ae_pth(path: str, expected) -> Dict[str, torch.Tensor]:
+    """The frozen FGD encoder's state_dict out of a Pose2Pose checkpoint's
+    ``ae.encoder.*`` entries. Raises unless they are exactly the tensors of
+    ``expected`` (an encoder's state_dict keys): a tensor left at its random
+    init would compute meaningless FGD without an error."""
+    out = _under(read_pth(path), "ae.encoder.")
+    missing, extra = sorted(set(expected) - set(out)), sorted(set(out) - set(expected))
+    if missing or extra:
+        raise ValueError(f"AE checkpoint {path!r} does not fill the frozen encoder: "
+                         f"missing {missing[:6]}, unexpected {extra[:6]}; its encoder "
+                         "architecture does not match VOICE2POSE.POSE_ENCODER")
+    return out
+
+
+def check_bank_rows(bank: torch.Tensor, num_train: Optional[int]) -> None:
+    """A template bank has one code per train clip: a bank of another size would
+    index the wrong clips' codes (torch's strict load raises on it too)."""
+    if num_train is not None and bank.shape[0] != num_train:
+        raise ValueError(f"clip-code bank has {bank.shape[0]} rows but the train split "
+                         f"has {num_train} clips; template codes are per clip, so a "
+                         "checkpoint can only continue on the dataset it was trained on")
+
+
+def external_code_bank(path: str, num_train: Optional[int]) -> torch.Tensor:
+    """SDT-VAE's template bank: the ``clip_code_mu`` of a Pose2Pose checkpoint,
+    one row per train clip (``num_train``; None takes any number)."""
+    sd = read_pth(path)
+    if "clip_code_mu" not in sd:
+        raise KeyError(f"no 'clip_code_mu' bank in {path}: not a Pose2Pose checkpoint")
+    bank = sd["clip_code_mu"].float()
+    check_bank_rows(bank, num_train)
+    return bank

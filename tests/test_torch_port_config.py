@@ -1,0 +1,79 @@
+"""The port's presets against the JAX package's config tree: for every key the
+port has, each preset equals ``get_cfg_defaults()`` merged with the
+``configs/*.yaml`` of its name. The one stated exception is TRAIN.PRECISION on
+the Voice2Pose presets, which the port keeps at its bf16 flagship precision.
+The presets take DATASET.SPEAKER as an argument (the port's default is
+'oliver'); the YAML files leave it unset, so the comparison passes None."""
+
+import dataclasses
+import os
+
+import pytest
+
+from speechdrivestemplates_tpu_torch import config as C
+
+CONFIG_DIR = os.path.join(os.path.dirname(__file__), "..", "configs")
+
+
+def _leaves(node, prefix=()):
+    for f in dataclasses.fields(node):
+        value = getattr(node, f.name)
+        if dataclasses.is_dataclass(value):
+            yield from _leaves(value, prefix + (f.name,))
+        else:
+            yield prefix + (f.name,), value
+
+
+@pytest.mark.parametrize("name", sorted(C.PRESETS))
+def test_preset_equals_the_jax_config_file(name):
+    from speechdrivestemplates_tpu.config import get_cfg_defaults
+
+    ref = get_cfg_defaults()
+    ref.merge_from_file(os.path.join(CONFIG_DIR, f"{name}.yaml"))
+    cfg = C.PRESETS[name](speaker=None)
+    exceptions = {("TRAIN", "PRECISION")} if ref.PIPELINE_TYPE == "Voice2Pose" else set()
+    checked = 0
+    for path, value in _leaves(cfg):
+        want = ref
+        for part in path:
+            want = want[part]
+        if path in exceptions:
+            assert (value, want) == ("bf16", "fp32")
+            continue
+        assert value == want and (value is None) == (want is None), (".".join(path), value, want)
+        checked += 1
+    assert checked >= 50
+    assert cfg.PIPELINE_TYPE == ref.PIPELINE_TYPE
+    assert C.PRESETS[name]().DATASET.SPEAKER == "oliver"
+
+
+def test_config_file_names_pick_the_presets():
+    for name, fn in C.PRESETS.items():
+        assert C.preset_for_config_file(f"configs/{name}.yaml") == fn()
+    assert C.preset_for_config_file("voice2pose_sdt_vae.yaml").VOICE2POSE.GENERATOR.CLIP_CODE.EXTERNAL_CODE
+    assert C.pose2pose().TRAIN.PRECISION == "fp32" and C.sdt_vae().TRAIN.PRECISION == "bf16"
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 11"):
+        C.preset_for_config_file("configs/voice2pose_s2g.yaml")
+    with pytest.raises(ValueError, match="no preset for config file"):
+        C.preset_for_config_file("configs/my_model.yaml")
+
+
+def test_new_keys_parse_like_yacs():
+    """The keys this slice added take their values as yacs' merge_from_list
+    does: None-valued keys take any literal."""
+    from speechdrivestemplates_tpu.config import get_cfg_defaults
+
+    opts = ["TEST.BATCH_SIZE", "2", "TEST.MULTIPLE", "3", "TEST.SAVE_NPZ", "False",
+            "DEMO.CODE_INDEX", "4", "DEMO.CODE_INDEX_B", "5", "POSE2POSE.LAMBDA_KL", "1",
+            "VOICE2POSE.POSE_ENCODER.AE_CHECKPOINT", "/ckpt/ae.pth",
+            "VOICE2POSE.GENERATOR.CLIP_CODE.SAMPLE_FROM_NORMAL", "True",
+            "VOICE2POSE.GENERATOR.CLIP_CODE.EXTERNAL_CODE_PTH", "/ckpt/p2p.pth",
+            "TRAIN.NUM_RESULT_SAMPLE", "4", "PIPELINE_TYPE", "Pose2Pose"]
+    cfg = C.apply_overrides(C.sdt_bp(), list(opts))
+    ref = get_cfg_defaults()
+    ref.merge_from_list(list(opts))
+    for key in opts[0::2]:
+        got, want = cfg, ref
+        for part in key.split("."):
+            got, want = getattr(got, part), want[part]
+        assert got == want and type(got) is type(want), (key, got, want)

@@ -235,11 +235,12 @@ def test_overrides_parse_like_yacs():
 
 @pytest.mark.parametrize("opts,match", [
     (["VOICE2POSE.POSE_DISCRIMINATOR.NAME", "PoseSequenceDiscriminator"], "item 11"),
-    (["VOICE2POSE.GENERATOR.CLIP_CODE.EXTERNAL_CODE", "True"], "item 12"),
-    (["VOICE2POSE.GENERATOR.CLIP_CODE.FRAME_VARIANT", "True"], "item 12"),
-    (["TRAIN.VALIDATE", "True"], "item 10"),
+    (["VOICE2POSE.GENERATOR.CLIP_CODE.DIMENSION", "None"], "item 11"),
     (["TRAIN.SAVE_VIDEO", "True"], "item 13"),
-    (["DATASET.HIERARCHICAL_POSE", "False"], "item 10"),
+    (["TRAIN.VALIDATE", "True", "TEST.SAVE_VIDEO", "True"], "item 13"),
+    (["DATASET.HIERARCHICAL_POSE", "False"], "item 11"),
+    (["PIPELINE_TYPE", "Pose2Pose", "POSE2POSE.AUTOENCODER.NAME", "Autoencoder",
+      "TRAIN.SAVE_VIDEO", "True"], "item 13"),
 ])
 def test_unported_options_raise_naming_the_roadmap(speaker_root, tmp_path, opts, match):
     from speechdrivestemplates_tpu_torch.pipelines.trainer import train

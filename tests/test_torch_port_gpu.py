@@ -267,3 +267,55 @@ def test_train_step_on_the_card(cuda):
     assert losses["G_clipcode_kl_loss"].item() == 0.0
     assert results["poses_pred_batch"].shape == (4, 64, 2, 121)
     assert state.clips_code.detach()[:4].abs().sum() > 0
+
+
+@pytest.mark.parametrize("batch", [32, 3])
+def test_eval_step_launches_mel_conv1_stem_once_each(cuda, batch):
+    """The SDT-BP bf16 eval step (a test or validation batch, B = 32, and the
+    ragged last batch of 131 dev clips, B = 3): the mel, conv1 and stem
+    kernels once each, finite losses and latents, and the state back in train
+    mode."""
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.config import sdt_bp
+    from speechdrivestemplates_tpu_torch.pipelines.voice2pose import (Voice2PoseTrainState,
+                                                                     eval_step)
+    from speechdrivestemplates_tpu_torch.profile_train import train_batch
+
+    cfg = sdt_bp()
+    state = Voice2PoseTrainState(cfg, 8, "cuda")
+    b = train_batch(cfg, batch, 8, "cuda")
+    assert b["audio"].shape == (batch, 68266)
+    before = dict(kernels.LAUNCHES)
+    losses, results = eval_step(state, b)
+    torch.cuda.synchronize()
+    assert {n: kernels.LAUNCHES[n] - before.get(n, 0) for n in ("mel", "conv1", "stem")} == \
+        {"mel": 1, "conv1": 1, "stem": 1}
+    assert all(torch.isfinite(losses[k]) for k in ("G_reg_loss", "L2_dist", "lip_sync_error_n"))
+    for k in ("mu_pred", "logvar_pred", "mu_gt", "logvar_gt"):
+        assert results[k].shape == (batch, 32) and torch.isfinite(results[k]).all(), k
+    assert state.generator.training and state.pose_encoder.training
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_kernels_match_plain_at_the_ragged_eval_batch(cuda, dtype):
+    """B3 then B2 (``stem_kernel``) against the plain stem at the ragged last
+    eval batch's shape, (3, 80, 427): fp32 at the tight gate, bf16 within the
+    quantile gate of the serving shape."""
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.ops import stem as S
+
+    rng = np.random.RandomState(7)
+    mel = _randn(rng, 3, 80, 427)
+    w = (_randn(rng, 64, 1, 3, 3, scale=0.2), _randn(rng, 64, 64, 4, 4, scale=0.05),
+         _randn(rng, 128, 64, 3, 3, scale=0.05))
+    before = dict(kernels.LAUNCHES)
+    got = S.stem_kernel(mel, *w, 0.2, dtype)
+    assert {n: kernels.LAUNCHES[n] - before.get(n, 0) for n in ("conv1", "stem")} == \
+        {"conv1": 1, "stem": 1}
+    ref = S.stem_plain(mel, *w, 0.2, torch.float32)
+    assert got.shape == ref.shape == (3, *S.stem_dims(427), 128)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-5)
+    else:
+        err = (got.float() - ref).abs().flatten()
+        assert torch.quantile(err, 0.99) < 0.05 and err.mean() < 0.02

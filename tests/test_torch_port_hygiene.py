@@ -45,6 +45,7 @@ def test_importing_the_port_loads_no_jax():
             "speechdrivestemplates_tpu_torch.profile_kernels, "
             "speechdrivestemplates_tpu_torch.profile_train, "
             "speechdrivestemplates_tpu_torch.main, "
+            "speechdrivestemplates_tpu_torch.chain_e2e, "
             "speechdrivestemplates_tpu_torch.datasets.synthetic; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
@@ -84,6 +85,58 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(tmp_path):
     assert not (tmp_path / "out").exists()
     with pytest.raises(SystemExit):  # only the flags it implements
         main.main(["--device", "cpu", "--resume_from", "x"])
+
+
+def test_test_and_pose2pose_entry_points_need_cuda(tmp_path):
+    """The test run, the Pose2Pose and SDT-VAE training runs and their train
+    states: the card unless the CPU is asked for, before anything is read or
+    written."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points run on it")
+    from speechdrivestemplates_tpu_torch import main
+    from speechdrivestemplates_tpu_torch.config import pose2pose, sdt_bp
+    from speechdrivestemplates_tpu_torch.pipelines import trainer
+    from speechdrivestemplates_tpu_torch.pipelines.pose2pose import Pose2PoseTrainState
+    from speechdrivestemplates_tpu_torch.pipelines.voice2pose import Voice2PoseTrainState
+
+    from speechdrivestemplates_tpu_torch import chain_e2e
+
+    out = str(tmp_path / "out")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chain_e2e.main(["pose2pose", "--out", out])
+    for argv in (["--test_only", "--checkpoint", str(tmp_path / "x.pth")],
+                 ["--config_file", "configs/pose2pose.yaml"],
+                 ["--config_file", "configs/voice2pose_sdt_vae.yaml"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main.main([*argv, "SYS.OUTPUT_DIR", out])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Pose2PoseTrainState(pose2pose(), 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Voice2PoseTrainState(sdt_bp(), 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.test(sdt_bp(), str(tmp_path / "x.pth"))
+    assert not (tmp_path / "out").exists()
+
+
+def test_every_refusal_names_its_roadmap_item():
+    """Each ``raise NotImplementedError`` in the port says which queue-A item
+    of ROADMAP.md will port what it refuses. Literal items in this tree: 11
+    (s2g: the discriminator, code-less generators, global poses); 13 (videos)
+    comes through the trainer's table."""
+    import re
+
+    items, raises = set(), 0
+    for f in sorted(PORT.rglob("*.py")):
+        text = f.read_text()
+        for node in ast.walk(ast.parse(text)):
+            if (isinstance(node, ast.Raise) and isinstance(node.exc, ast.Call)
+                    and getattr(node.exc.func, "id", None) == "NotImplementedError"):
+                src = " ".join(ast.get_source_segment(text, node).split())
+                found = re.search(r"queue A, (?:\"\s*f?\")?item (\d+|\{item\})", src)
+                assert "ROADMAP.md" in src and found, (f.name, src)
+                items.add(found.group(1))
+                raises += 1
+    assert raises >= 4 and items >= {"11", "{item}"}, (raises, items)
 
 
 def test_cpu_serving_launches_no_kernel(rng):
