@@ -36,8 +36,9 @@ Phases, each of which must pass or the script exits non-zero:
               cosine >= 0.99; 30 steps at LR 1e-3 keep every loss finite and bring the
               mean G_reg_loss of the last 4 below that of the first 4; the step's time
               by CUDA events over 20 steps on device-resident batches, and the trainer
-              loop's steps/s with its loader over two 50-step epochs of a 1,600-clip
-              speaker, and the loader's batches/s alone over a third
+              loop's steps/s with its loader (page-locked batches, each copy enqueued a
+              step ahead) over two 50-step epochs of a 1,600-clip speaker, and the
+              loader's batches/s alone over a third
  11. train-cli  `python -m speechdrivestemplates_tpu_torch.main --device cuda` for two
               epochs in a subprocess: rc 0, a JSON line naming a checkpoint, and the
               serving command line serves a wav from that checkpoint
@@ -60,11 +61,27 @@ Phases, each of which must pass or the script exits non-zero:
               AE_CHECKPOINT and TRAIN.VALIDATE True, then `--test_only --checkpoint` of
               that SDT-BP checkpoint (its JSON names the four test metrics), then SDT-VAE
               on the Pose2Pose bank, which its checkpoint holds unchanged
+ 15. graphed  phase 10's 1,600-clip speaker staged on the card (DATASET.CACHING,
+              DEVICE_CACHE on), two 50-step epochs at B = 32 for SDT-BP bf16 and Pose2Pose
+              fp32, each at K = 1 (plain Adam), K = 1 with the capturable Adam and K = 8
+              (TRAIN.STEPS_PER_DISPATCH: CUDA graphs of 8 steps and of the remainder 2):
+              the loop's steps/s; K = 8's 100 loss rows and weights equal K = 1's under
+              the same capturable Adam bit for bit (cuDNN deterministic in both); SDT-BP
+              executes the mel kernel once per step (8 eager launches, 10 captured, 92
+              replayed); then through the command line, K = 8 and the cache on 320 of the
+              clips: 4 epochs straight against the straight run's epoch-2 checkpoint
+              resumed in a copy of its directory for 2 more (weights and Adam moments
+              within rtol 1e-3, atol 1e-5; bit equality reported), and a run sent
+              SIGTERM after its first logged step (exit 143, an epoch-(E-1) checkpoint
+              with its resume file) that TRAIN.AUTO_RESUME continues to its end
 Then one JSON line with every kernel's error, times, bound and launches (the mel
-kernel's count over the serving requests, the train phase's steps and the eval
-batches; conv1's and the stem's over the serving requests and the eval batches),
-the card's name and power limit, a JSON line with the train step's time and one
-with phases 12-13's numbers, and last {"ok": true, "device": {...}}.
+kernel's count over the serving requests, the train phase's steps, the eval
+batches and phase 15's SDT-BP loops, whose CUDA graphs count a launch where it
+was captured, not where it was replayed; conv1's and the stem's over the
+serving requests and the eval batches),
+the card's name and power limit, a JSON line with the train step's time, one
+with phases 12-14's numbers and one with phase 15's, and last
+{"ok": true, "device": {...}}.
 
 Times are CUDA-event means over repeated calls after a warm-up; inputs rotate over
 three copies so that each call reads from device memory rather than the 50 MB L2.
@@ -72,6 +89,7 @@ three copies so that each call reads from device memory rather than the 50 MB L2
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import shutil
@@ -79,6 +97,7 @@ import subprocess
 import sys
 import time
 import wave
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -486,7 +505,7 @@ def main() -> None:
     # ---- 10. train ----------------------------------------------------------------
     from speechdrivestemplates_tpu_torch.config import apply_overrides
     from speechdrivestemplates_tpu_torch.datasets.synthetic import make_synthetic_speaker
-    from speechdrivestemplates_tpu_torch.pipelines.trainer import train_epoch, train_loader
+    from speechdrivestemplates_tpu_torch.pipelines.trainer import TrainLoop, train_loader
     from speechdrivestemplates_tpu_torch.pipelines import voice2pose as V2P
     from speechdrivestemplates_tpu_torch.pipelines.voice2pose import (
         Voice2PoseTrainState, train_step)
@@ -582,15 +601,16 @@ def main() -> None:
     make_synthetic_speaker(long_root, "oliver", num_train=50 * TB, num_dev=0)
     long_cfg = apply_overrides(sdt_bp(), ["DATASET.ROOT_DIR", long_root,
                                           "TRAIN.VALIDATE", "False", "TRAIN.SAVE_VIDEO", "False"])
-    long_loader = train_loader(long_cfg)
+    long_loader = train_loader(long_cfg, dev)  # page-locked batches, prefetched
     state = Voice2PoseTrainState(long_cfg, len(long_loader.dataset), dev)
-    loop_rates = []
+    long_loop, loop_rates, gstep = TrainLoop(state, long_loader), [], 0
     for e in (1, 2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        steps = train_epoch(state, long_loader, e)[0]
+        end = long_loop.epoch(e, gstep)[0]
         torch.cuda.synchronize()
-        loop_rates.append(steps / (time.perf_counter() - t0))
+        loop_rates.append((end - gstep) / (time.perf_counter() - t0))
+        steps, gstep = end - gstep, end
     check(steps == 50, f"long epoch: {steps} steps")
     # the loader alone on the same warm pool: a third epoch's batches copied to
     # the card, no train step
@@ -626,8 +646,7 @@ def main() -> None:
           f"the loader alone (a third epoch, batches copied to the card) {loader_rate:.2f} "
           f"batches/s",
           flush=True)
-    del state, long_loader, loader
-    shutil.rmtree(long_root, ignore_errors=True)
+    del state, long_loader, long_loop, loader
 
     # ---- 11. training command line ---------------------------------------------------
     runs = os.path.join(work, "runs")
@@ -815,6 +834,193 @@ def main() -> None:
           f"{ {k: round(c_test['metrics'][k], 4) for k in test_keys} }; the SDT-VAE "
           f"checkpoint holds the Pose2Pose bank unchanged", flush=True)
 
+    # ---- 15. the graphed loop on the device cache, resume, preemption ---------------
+    import signal
+    import threading
+
+    from speechdrivestemplates_tpu_torch.pipelines.checkpoint import checkpoint_key, resume_path
+    from speechdrivestemplates_tpu_torch.pipelines.trainer import PIPELINES, stage_device_cache
+
+    gopts = ["DATASET.ROOT_DIR", long_root, "TRAIN.VALIDATE", "False", "TRAIN.SAVE_VIDEO",
+             "False", "DATASET.CACHING", "True", "DATASET.DEVICE_CACHE", "on"]
+    gcfg = apply_overrides(sdt_bp(), list(gopts))
+    gloader = train_loader(gcfg, dev)
+    t0 = time.perf_counter()
+    cache_bp, cache_line = stage_device_cache(gcfg, gloader, dev,
+                                              PIPELINES["Voice2Pose"].device_keys)
+    stage_s = time.perf_counter() - t0
+    check(cache_bp is not None, cache_line)
+    caches = {"Voice2Pose": cache_bp,
+              "Pose2Pose": {k: cache_bp[k] for k in PIPELINES["Pose2Pose"].device_keys}}
+
+    def cached_loop(preset, K, capturable, deterministic):
+        """Two 50-step epochs of the 1,600-clip speaker from the device cache
+        at K steps a dispatch: the loop's steps/s in each epoch (host clock,
+        synchronized), every step's loss row, the launch counts, the state."""
+        cfg = apply_overrides(preset(), gopts + ["TRAIN.STEPS_PER_DISPATCH", str(K)])
+        state = PIPELINES[cfg.PIPELINE_TYPE].state(cfg, len(gloader.dataset), dev,
+                                                   capturable=capturable)
+        torch.backends.cudnn.deterministic = deterministic
+        loop = TrainLoop(state, gloader, caches[cfg.PIPELINE_TYPE], K, collect=True)
+        kernels.reset_launch_counts()
+        rates, gs = [], 0
+        try:
+            for e in (1, 2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                end = loop.epoch(e, gs)[0]
+                torch.cuda.synchronize()
+                rates.append((end - gs) / (time.perf_counter() - t0))
+                gs = end
+        finally:
+            torch.backends.cudnn.deterministic = False
+        counts = {"launches": dict(kernels.LAUNCHES), "captured": dict(kernels.CAPTURED),
+                  "replayed": dict(kernels.REPLAYED), "executed": dict(kernels.executions())}
+        rows = torch.cat(loop.history).cpu()
+        check(gs == 100 and rows.shape[0] == 100 and bool(torch.isfinite(rows).all()),
+              f"{cfg.PIPELINE_TYPE} K={K}: {gs} steps, rows {tuple(rows.shape)} finite "
+              f"{bool(torch.isfinite(rows).all())}")
+        return SimpleNamespace(state=state, rows=rows, rates=rates, counts=counts,
+                               graphs=sorted(getattr(loop.runner, "graphs", {})),
+                               names=loop.names)
+
+    graph_line = {"card": card, "clips": len(gloader.dataset), "batch": TB,
+                  "steps_per_epoch": 50, "cache_stage_s": stage_s, "cache_line": cache_line,
+                  "loader_loop_steps_per_s": loop_rates[1]}
+    for preset, name in ((sdt_bp, "sdt_bp_bf16"), (pose2pose, "pose2pose_fp32")):
+        # the default K = 1 (plain Adam), then the gate pair under one capturable Adam
+        # with cuDNN deterministic: K = 1 eager from the cache, K = 8 graphed
+        k1 = cached_loop(preset, 1, False, False)
+        k1c = cached_loop(preset, 1, True, True)
+        k8 = cached_loop(preset, 8, True, True)
+        check(k8.graphs == [2, 8], f"{name}: graphs captured for chunk lengths {k8.graphs}")
+        k8_err = (k8.rows - k1c.rows).abs().max().item()
+        check(torch.equal(k8.rows, k1c.rows),
+              f"{name}: K=8 graphed loss rows differ from K=1 eager under the same capturable "
+              f"Adam: max abs {k8_err}")
+        sd8, sd1 = k8.state.state_dict(), k1c.state.state_dict()
+        check(all(torch.equal(sd8[k], sd1[k]) for k in sd1),
+              f"{name}: K=8 weights differ from K=1's after 100 steps")
+        cap_rel = ((k1.rows - k1c.rows).abs() / k1c.rows.abs().clamp_min(1e-12)).max().item()
+        entry = {"k1_steps_per_s": k1.rates, "k1_capturable_steps_per_s": k1c.rates,
+                 "k8_steps_per_s": k8.rates, "k8_step_ms": 1e3 / k8.rates[1],
+                 "k1_step_ms": 1e3 / k1.rates[1], "k8_rows_equal_k1_capturable": True,
+                 "capturable_vs_plain_adam_max_rel_loss_diff": cap_rel,
+                 "k8_counts": k8.counts}
+        if preset is sdt_bp:
+            c = k8.counts
+            check(c["executed"].get("mel") == 100 and c["captured"].get("mel") == 8 + 2
+                  and c["launches"].get("mel") == 8 + 10 and c["replayed"].get("mel") == 92
+                  and k1.counts["executed"].get("mel") == 100,
+                  f"SDT-BP K=8: mel launches {c}; K=1 {k1.counts}: expected 100 executions "
+                  "(8 eager + 92 replayed; 10 captured)")
+            # the wrapper's own count: host launches, the 10 captured ones included
+            report["mel"]["launches"] += sum(r.counts["launches"]["mel"] for r in (k1, k1c, k8))
+        else:
+            check(not k8.counts["launches"], f"Pose2Pose launched {k8.counts}")
+        graph_line[name] = entry
+        print(f"[graphed] {name} B={TB}, 1,600 clips on the card, two 50-step epochs: "
+              f"K=1 {k1.rates[1]:.2f} steps/s ({entry['k1_step_ms']:.3f} ms a step), K=1 "
+              f"capturable {k1c.rates[1]:.2f}, K=8 {k8.rates[1]:.2f} steps/s "
+              f"({entry['k8_step_ms']:.3f} ms; first epoch {k8.rates[0]:.2f}, captures "
+              f"included); K=8 rows = K=1 capturable rows bit for bit over 100 steps, weights "
+              f"too; capturable vs plain Adam: max rel loss diff {cap_rel:.3e}; K=8 counts "
+              f"{k8.counts}", flush=True)
+        del k1, k1c, k8
+    del caches, cache_bp, gloader
+
+    # resume through the command line: 4 epochs straight, against the straight run's
+    # epoch-2 checkpoint resumed in a copy of its directory for 2 more (K = 8, the
+    # cache, 320 clips: 10 steps an epoch, a chunk of 8 and one of 2)
+    rruns = os.path.join(work, "resume_runs")
+    shutil.rmtree(rruns, ignore_errors=True)
+    ropts = [*gopts, "DATASET.SUBSET", "320", "TRAIN.STEPS_PER_DISPATCH", "8",
+             "SYS.OUTPUT_DIR", rruns, "SYS.LOG_INTERVAL", "5", "TRAIN.NUM_EPOCHS", "4"]
+
+    def main_cli(*args, timeout=300):
+        r = subprocess.run([sys.executable, "-m", "speechdrivestemplates_tpu_torch.main",
+                            "--device", "cuda", *args], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=timeout)
+        check(r.returncode == 0, f"main {args[:4]} rc {r.returncode}:\n{r.stdout}\n"
+                                 f"{r.stderr[-4000:]}")
+        return json.loads(r.stdout.strip().splitlines()[-1])
+
+    t0 = time.perf_counter()
+    straight = main_cli("--tag", "straight", *ropts)
+    check(straight["steps"] == 40, f"straight run: {straight}")
+    split_dir = straight["output_dir"] + "_copy"
+    shutil.copytree(straight["output_dir"], split_dir)
+    ck2 = glob.glob(os.path.join(split_dir, "checkpoints", "checkpoint_epoch-2_*.pth"))
+    check(len(ck2) == 1, f"epoch-2 checkpoints in the copy: {ck2}")
+    for f in glob.glob(os.path.join(split_dir, "checkpoints", "checkpoint_epoch-[34]_*")):
+        os.remove(f)
+    resumed = main_cli("--tag", "straight", "--resume_from", ck2[0], *ropts)
+    resume_s = time.perf_counter() - t0
+    check(resumed["steps"] == 40 and resumed["resumed_from"] == ck2[0]
+          and os.path.basename(resumed["checkpoint"])
+          == os.path.basename(straight["checkpoint"]), f"resumed run: {resumed}")
+    wa, wb = read_pth(straight["checkpoint"]), read_pth(resumed["checkpoint"])
+    ra, rb = (torch.load(resume_path(c), map_location="cpu", weights_only=True)
+              for c in (straight["checkpoint"], resumed["checkpoint"]))
+    moments = [(sa[k], sb[k]) for oa, ob in zip(ra["optimizers"], rb["optimizers"])
+               for sa, sb in zip(oa["state"].values(), ob["state"].values())
+               for k in ("exp_avg", "exp_avg_sq", "step")]
+    pairs = [(wa[k], wb[k]) for k in wa] + moments
+    resume_bitwise = all(torch.equal(a, b) for a, b in pairs)
+    resume_err = max((a.double() - b.double()).abs().max().item() for a, b in pairs)
+    # separate processes: cuDNN may pick a non-deterministic backward algorithm,
+    # so the gate allows fp32 round-off accumulated over 20 Adam steps
+    check(all(torch.allclose(a.double(), b.double(), rtol=1e-3, atol=1e-5) for a, b in pairs)
+          and ra["global_step"] == rb["global_step"] == 40 and ra["step"] == rb["step"],
+          f"resume: weights and moments differ from the straight run by {resume_err}")
+    print(f"[resume] CLI, SDT-BP bf16, K=8, the cache, 320 clips: 4 epochs straight vs epoch 2 "
+          f"+ --resume_from + 2 epochs: weights and Adam moments bit for bit: "
+          f"{resume_bitwise} (max abs diff {resume_err:.3e}; gate rtol 1e-3, atol 1e-5), "
+          f"global step 40 both; {resume_s:.1f} s", flush=True)
+
+    # preemption: SIGTERM after the first logged step, exit 143, an epoch-(E-1)
+    # checkpoint with its resume file; TRAIN.AUTO_RESUME continues it
+    pre_opts = [*ropts, "TRAIN.NUM_EPOCHS", "500", "TRAIN.CHECKPOINT_INTERVAL", "1000",
+                "TRAIN.AUTO_RESUME", "True", "SYS.LOG_INTERVAL", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "speechdrivestemplates_tpu_torch.main",
+                             "--device", "cuda", "--tag", "pre", *pre_opts], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    killer = threading.Timer(300, proc.kill)
+    killer.start()
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line)
+            if "global_step" in line:
+                proc.send_signal(signal.SIGTERM)
+                break
+        rest, _ = proc.communicate(timeout=120)
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = "".join(lines) + rest
+    check(proc.returncode == 143 and "Preemption checkpoint saved" in out,
+          f"preempted run rc {proc.returncode}:\n{out[-4000:]}")
+    pre_ck = glob.glob(os.path.join(rruns, "*_pre", "checkpoints", "*.pth"))
+    check(len(pre_ck) == 1 and os.path.exists(resume_path(pre_ck[0])),
+          f"preemption checkpoints {pre_ck}")
+    pe, ps = checkpoint_key(pre_ck[0])
+    cont = main_cli("--tag", "pre", *pre_opts, "TRAIN.NUM_EPOCHS", str(pe + 1))
+    check(cont.get("resumed_from") == pre_ck[0] and cont["steps"] == ps + 10,
+          f"auto-resumed run from {pre_ck[0]}: {cont}")
+    preempt_s = time.perf_counter() - t0
+    print(f"[preempt] SIGTERM after the first logged step: rc 143, "
+          f"{os.path.basename(pre_ck[0])} with its resume file; TRAIN.AUTO_RESUME continued "
+          f"from global step {ps} and finished epoch {pe + 1} at step {cont['steps']}; "
+          f"{preempt_s:.1f} s", flush=True)
+    graph_line.update(resume_bitwise=resume_bitwise, resume_max_abs_diff=resume_err,
+                      resume_s=resume_s, preempt_checkpoint=os.path.basename(pre_ck[0]),
+                      preempt_s=preempt_s)
+    shutil.rmtree(long_root, ignore_errors=True)
+
     # ---- summary -----------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -823,6 +1029,7 @@ def main() -> None:
                                   for n in ("mel", "conv1", "stem", "shift_probe")]}))
     print(json.dumps(train_line))
     print(json.dumps(chain_line))
+    print(json.dumps({"graphed": graph_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -19,7 +19,9 @@ eval_step`` (the kernels above in eval mode, the FGD features),
 ``pose2pose.train_step`` / ``eval_step`` (the VAE whose encoder and bank the
 Voice2Pose models take), and ``trainer`` (epochs over
 ``datasets/gesture_dataset.py``, validation, test runs with FGD, reference-
-layout ``.pth`` checkpoints).
+layout ``.pth`` checkpoints with resume files, resume / pretrain /
+auto-resume, preemption, TensorBoard scalars, the train set staged on the
+card, and K train steps in one CUDA graph, ``pipelines/graphed.py``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``:
 ``python -m speechdrivestemplates_tpu_torch.main`` (training and

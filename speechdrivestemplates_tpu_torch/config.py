@@ -84,6 +84,9 @@ class DatasetConfig:
     AUDIO_LENGTH: int = 68267
     AUDIO_SR: int = 16000
     FPS: int = 15
+    CACHING: bool = False  # the split read once into SoA arrays, batches gathered from them
+    DEVICE_CACHE: str = "auto"  # 'auto' | 'on' (raise when it cannot engage) | 'off'
+    DEVICE_CACHE_MAX_MB: int = 2048  # the train set staged on the card up to this size
 
 
 @dataclass
@@ -95,10 +98,14 @@ class TrainConfig:
     LR: float = 1e-4
     WD: float = 0.0  # yacs' default is the int 0, which refuses `TRAIN.WD 1e-3`
     LR_SCHEDULER: bool = True
+    PRETRAIN_FROM: Optional[str] = None  # a .pth whose weights start the run
+    AUTO_RESUME: bool = False  # continue this tag's newest loadable checkpoint
+    CHECKPOINT_ON_PREEMPT: bool = True  # SIGTERM: checkpoint after the step, exit 143
     VALIDATE: bool = True
     NUM_RESULT_SAMPLE: int = 2  # result archives an epoch (TRAIN.SAVE_NPZ)
     CHECKPOINT_INTERVAL: int = 1  # epochs between checkpoint saves
     PRECISION: str = "fp32"  # 'fp32' | 'bf16': compute dtype of the conv stacks
+    STEPS_PER_DISPATCH: int = 1  # K > 1: K steps in one CUDA graph (needs the device cache)
 
 
 @dataclass
@@ -117,11 +124,20 @@ class DemoConfig:
 
 
 @dataclass
+class ProfileConfig:
+    ENABLED: bool = False
+    START_STEP: int = 10  # global step where the torch.profiler window opens
+    NUM_STEPS: int = 5
+    OUT_DIR: Optional[str] = None  # default: <run>/profile
+
+
+@dataclass
 class SysConfig:
     OUTPUT_DIR: str = "output/"
     LOG_INTERVAL: int = 100  # steps between log lines
     SEED: int = 0
     NUM_WORKERS: int = 8  # loader worker processes (0: load in the training process)
+    PROFILE: ProfileConfig = field(default_factory=ProfileConfig)
 
 
 @dataclass

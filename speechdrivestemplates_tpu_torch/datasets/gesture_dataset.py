@@ -12,14 +12,20 @@ for the train split the row of the clip-code bank) and those statistics.
 ``EpochBatches`` is the JAX loader's train schedule, a ``RandomState(seed +
 epoch)`` shuffle of the row indices in full batches only, so a port run and a
 JAX run see the same batches (``pipelines.trainer.train_loader`` feeds it to
-``torch.utils.data.DataLoader``).
+``torch.utils.data.DataLoader``, or, with DATASET.CACHING, to ``CachedLoader``).
+
+With DATASET.CACHING (the JAX ``GestureDataset``'s option of that name) an
+item is read once and kept; ``materialize()`` stacks the whole split once into
+structure-of-arrays numpy arrays (``speaker_stat`` nested), and
+``gather(indices)`` makes a batch of one fancy-indexed slice per key. These
+arrays are what the trainer stages on the card (DATASET.DEVICE_CACHE).
 """
 
 from __future__ import annotations
 
 import csv
 import os
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -47,6 +53,9 @@ class GestureDataset:
                 "re-normalizes parted -> global) is not ported yet: ROADMAP.md "
                 "queue A, item 11")
         self.cfg = cfg.DATASET
+        self.split = split
+        self._cache: Dict[int, Dict[str, object]] = {}
+        self._soa: Optional[Dict[str, object]] = None
         self.clips: List[Dict[str, str]] = []
         for sp in speaker.replace("+", " ").split():
             sp_dir = os.path.join(root_dir, sp)
@@ -65,6 +74,30 @@ class GestureDataset:
         return len(self.clips)
 
     def __getitem__(self, idx: int) -> Dict[str, object]:
+        if not self.cfg.CACHING:
+            return self._load_item(idx)
+        if self._soa is not None:
+            return _take(self._soa, idx)
+        if idx not in self._cache:
+            self._cache[idx] = self._load_item(idx)
+        return self._cache[idx]
+
+    def materialize(self) -> Optional[Dict[str, object]]:
+        """The split as SoA arrays, (N, ...) per key, built once (DATASET.CACHING
+        only; None without it)."""
+        if not self.cfg.CACHING:
+            return None
+        if self._soa is None:
+            self._soa = stack([self[i] for i in range(len(self))])
+            self._cache.clear()  # the item cache is redundant now
+        return self._soa
+
+    def gather(self, indices) -> Dict[str, object]:
+        """A batch of numpy arrays: one fancy-indexed slice of the SoA arrays
+        per key."""
+        return _take(self.materialize(), np.asarray(indices, dtype=np.int64))
+
+    def _load_item(self, idx: int) -> Dict[str, object]:
         clip = self.clips[idx]
         stat = get_speaker_stat(clip["speaker"], 121, parted=True)
         with np.load(os.path.join(clip["_dir"], clip["pose_fn"])) as arr:
@@ -78,16 +111,34 @@ class GestureDataset:
                 "clip_index": np.int64(idx), "speaker_stat": stat}
 
 
-def collate(samples: List[Dict[str, object]]) -> Dict[str, object]:
-    """Stack items into a batch of CPU tensors (``speaker_stat`` nested once)."""
+def _take(tree, idx):
+    if isinstance(tree, dict):
+        return {k: _take(v, idx) for k, v in tree.items()}
+    return tree[idx]
+
+
+def stack(samples: List[Dict[str, object]]) -> Dict[str, object]:
+    """Stack items into numpy arrays (``speaker_stat`` nested once)."""
     out: Dict[str, object] = {}
     for key, v0 in samples[0].items():
         if isinstance(v0, dict):
-            out[key] = {k: torch.from_numpy(np.stack([np.asarray(s[key][k]) for s in samples]))
-                        for k in v0}
+            out[key] = {k: np.stack([np.asarray(s[key][k]) for s in samples]) for k in v0}
         else:
-            out[key] = torch.from_numpy(np.stack([np.asarray(s[key]) for s in samples]))
+            out[key] = np.stack([np.asarray(s[key]) for s in samples])
     return out
+
+
+def to_torch(batch, pin: bool = False):
+    """Numpy arrays -> CPU tensors, in page-locked memory with ``pin``."""
+    if isinstance(batch, dict):
+        return {k: to_torch(v, pin) for k, v in batch.items()}
+    t = torch.from_numpy(np.ascontiguousarray(batch))
+    return t.pin_memory() if pin else t
+
+
+def collate(samples: List[Dict[str, object]]) -> Dict[str, object]:
+    """Stack items into a batch of CPU tensors (``speaker_stat`` nested once)."""
+    return to_torch(stack(samples))
 
 
 class EpochBatches:
@@ -114,4 +165,24 @@ class EpochBatches:
 
     def __iter__(self):
         return (b.tolist() for b in self.index_batches())
+
+
+class CachedLoader:
+    """The train loader with DATASET.CACHING: the batches of ``EpochBatches``
+    gathered from the dataset's SoA arrays in this process (no worker
+    processes: the arrays live here), as CPU tensors, page-locked with
+    ``pin``. The same interface as the ``DataLoader`` it replaces:
+    ``dataset``, ``batch_sampler`` (``set_epoch``), ``len`` and iteration."""
+
+    def __init__(self, dataset: GestureDataset, batch_sampler: EpochBatches, pin: bool = False):
+        self.dataset = dataset
+        self.batch_sampler = batch_sampler
+        self.pin = pin
+
+    def __len__(self) -> int:
+        return len(self.batch_sampler)
+
+    def __iter__(self):
+        for idx in self.batch_sampler.index_batches():
+            yield to_torch(self.dataset.gather(idx), self.pin)
 

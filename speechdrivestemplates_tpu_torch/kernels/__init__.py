@@ -8,7 +8,11 @@ when its source is newer. ``build_all()`` compiles every source at once, one
 ``nvcc`` process each.
 
 ``LAUNCHES`` counts, per kernel, the calls in which its wrapper launched it
-(the wrappers in ``ops/`` add one right where they launch, nowhere else).
+(the wrappers in ``ops/`` add one right where they launch, nowhere else). A
+launch made while a stream captures a CUDA graph is recorded, not run: the
+graph runner (``pipelines/graphed.py``) adds those to ``CAPTURED``, and each
+replay adds the graph's captured launches to ``REPLAYED``. ``executions()``
+counts the kernels that ran: ``LAUNCHES - CAPTURED + REPLAYED``.
 
 The kernels are forward-only, as the JAX package's Pallas kernels are: they
 write through raw pointers, so their outputs carry no ``grad_fn``. Each
@@ -42,12 +46,23 @@ SIGNATURES = {
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
+CAPTURED: collections.Counter = collections.Counter()
+REPLAYED: collections.Counter = collections.Counter()
 _libs: dict = {}
 _lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES.clear()
+    for c in (LAUNCHES, CAPTURED, REPLAYED):
+        c.clear()
+
+
+def executions() -> collections.Counter:
+    """Per kernel, the launches that ran: eager launches plus replayed ones."""
+    out = collections.Counter(LAUNCHES)
+    out.subtract(CAPTURED)
+    out.update(REPLAYED)
+    return +out
 
 
 def _nvcc() -> str:

@@ -1,7 +1,8 @@
 """Train or test with the port from a speaker directory:
 
     python -m speechdrivestemplates_tpu_torch.main [--config_file configs/NAME.yaml]
-        [--test_only --checkpoint CKPT.pth] [--device cuda|cpu] [--tag T] [KEY VALUE ...]
+        [--test_only --checkpoint CKPT.pth] [--resume_from CKPT|RUN_DIR]
+        [--pretrain_from CKPT.pth] [--device cuda|cpu] [--tag T] [KEY VALUE ...]
 
 ``--config_file`` picks the preset of that name (``config.preset_for_config_file``:
 ``configs/pose2pose.yaml``, ``configs/voice2pose_sdt_bp.yaml``,
@@ -11,10 +12,16 @@ e.g. ``DATASET.ROOT_DIR datasets/speakers TRAIN.NUM_EPOCHS 100``. Videos are
 not ported yet, so ``TRAIN.SAVE_VIDEO False`` is required, and ``TEST.SAVE_VIDEO
 False`` where the run evaluates (``--test_only``, or ``TRAIN.VALIDATE`` True).
 ``--test_only`` evaluates ``--checkpoint`` on the val split instead of training
-(it takes precedence, as in the JAX ``main.py``). Runs on the card unless
-``--device cpu`` is given, and raises without one. Prints one JSON line at the
-end: a training run's steps, last losses and last checkpoint (which the serving
-command line loads), or a test run's metrics.
+(it takes precedence, as in the JAX ``main.py``). ``--resume_from`` continues
+a run from a checkpoint the port wrote (a ``.pth`` with its resume file, its
+run directory or ``checkpoints/``), in that run's directory; ``--pretrain_from``
+(TRAIN.PRETRAIN_FROM) starts a new run from a ``.pth``'s weights with fresh
+optimizers; TRAIN.AUTO_RESUME True continues this tag's newest checkpoint.
+Runs on the card unless ``--device cpu`` is given, and raises without one.
+Prints one JSON line at the end: a training run's steps, last losses, last
+checkpoint (which the serving command line loads) and the checkpoint it
+resumed from, or a test run's metrics. A training run ended by SIGTERM
+(TRAIN.CHECKPOINT_ON_PREEMPT) exits 143 after its checkpoint.
 """
 
 from __future__ import annotations
@@ -36,6 +43,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--test_only", action="store_true",
                     help="evaluate --checkpoint on the val split instead of training")
     ap.add_argument("--checkpoint", default=None, help="the .pth that --test_only evaluates")
+    ap.add_argument("--resume_from", default=None,
+                    help="continue training from this checkpoint (or run directory)")
+    ap.add_argument("--pretrain_from", default=None,
+                    help="start training from this .pth's weights (TRAIN.PRETRAIN_FROM)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--tag", default="sdt_bp", help="name of the run's output directory")
     ap.add_argument("opts", nargs="*", metavar="KEY VALUE", help="config overrides")
@@ -51,12 +62,14 @@ def main(argv=None) -> dict:
         cfg = apply_overrides(cfg, args.opts)
     except (KeyError, ValueError) as e:
         ap.error(str(e))
+    if args.pretrain_from is not None:
+        cfg.TRAIN.PRETRAIN_FROM = args.pretrain_from
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s [%(levelname)-0.5s] %(message)s")
     if args.test_only:
         summary = test(cfg, args.checkpoint, args.tag, device)
     else:
-        summary = train(cfg, args.tag, device)
+        summary = train(cfg, args.tag, device, args.resume_from)
     print(json.dumps(summary))
     return summary
 

@@ -21,7 +21,10 @@ from ..models import build_model
 from ..ops.pose import get_final_results, multiply_batch, step_metrics
 from ..utils.device import resolve_device
 from ..utils.weights import check_bank_rows, read_pth
-from .voice2pose import ADAM, eval_mode, make_scheduler, mel_buffers, save_pth
+from .voice2pose import (eval_mode, load_train_state, make_adam, make_scheduler, mel_buffers,
+                         save_pth, step_schedulers, train_state_dict)
+
+DEVICE_KEYS = ("poses", "clip_index", "speaker_stat")
 
 
 class Pose2PoseTrainState:
@@ -29,9 +32,11 @@ class Pose2PoseTrainState:
     count (the JAX package's ``Pose2Pose.state``). Weights come from a
     ``torch.Generator`` seeded with SYS.SEED, the reparameterization noise from
     another on the device. ``num_train`` None (a test run) leaves the banks
-    for a checkpoint to fill."""
+    for a checkpoint to fill. ``capturable`` and loads as for
+    ``Voice2PoseTrainState``."""
 
-    def __init__(self, cfg, num_train: Optional[int], device="cuda"):
+    def __init__(self, cfg, num_train: Optional[int], device="cuda",
+                 capturable: Optional[bool] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.num_train = num_train
@@ -41,8 +46,11 @@ class Pose2PoseTrainState:
         shape = (num_train or 1, cfg.POSE2POSE.AUTOENCODER.CODE_DIM)
         self.clip_code_mu = torch.zeros(shape, device=self.device)
         self.clip_code_logvar = torch.zeros(shape, device=self.device)
-        self.opt = torch.optim.Adam(self.ae.parameters(), lr=cfg.TRAIN.LR,
-                                    weight_decay=cfg.TRAIN.WD, **ADAM)
+        if capturable is None:
+            capturable = self.device.type == "cuda" and cfg.TRAIN.STEPS_PER_DISPATCH > 1
+        self.capturable = capturable
+        self.opt = make_adam(self.ae.parameters(), cfg.TRAIN.LR, self.device, capturable,
+                             cfg.TRAIN.WD)
         self.schedulers = [s for s in (make_scheduler(self.opt, cfg),) if s]
         self.rng = torch.Generator(device=self.device).manual_seed(cfg.SYS.SEED)
         self.step = 0
@@ -53,7 +61,11 @@ class Pose2PoseTrainState:
         self.ae.load_state_dict(parts["autoencoder"], strict=True)
         for k in ("clip_code_mu", "clip_code_logvar"):
             check_bank_rows(parts[k], self.num_train)
-            setattr(self, k, parts[k].float().to(self.device).clone())
+            bank = parts[k].float().to(self.device)
+            if bank.shape == getattr(self, k).shape:
+                getattr(self, k).copy_(bank)
+            else:  # a test run takes the checkpoint's rows
+                setattr(self, k, bank.clone())
 
     def load_pth(self, path: str) -> None:
         """Weights and banks from a reference-layout Pose2Pose checkpoint."""
@@ -63,12 +75,20 @@ class Pose2PoseTrainState:
                    "clip_code_mu": sd["clip_code_mu"],
                    "clip_code_logvar": sd["clip_code_logvar"]})
 
+    def optimizers(self) -> list:
+        return [self.opt]
+
     def end_epoch(self) -> None:
-        for s in self.schedulers:
-            s.step()
+        step_schedulers(self.schedulers, self.optimizers())
 
     def learning_rates(self) -> Dict[str, float]:
-        return {"optimizer": self.opt.param_groups[0]["lr"]}
+        return {"optimizer": float(self.opt.param_groups[0]["lr"])}
+
+    def train_state_dict(self) -> Dict[str, object]:
+        return train_state_dict(self)
+
+    def load_train_state(self, sd: Dict[str, object]) -> None:
+        load_train_state(self, sd)
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
         """The reference ``Pose2PoseModel`` keys (without ``module.``): the mel

@@ -2,21 +2,36 @@
 
 Counterpart of the JAX package's ``Trainer`` (``pipelines/trainer.py``),
 single process; ``PIPELINE_TYPE`` picks Voice2Pose or Pose2Pose. A run writes
-into ``<SYS.OUTPUT_DIR>/<datetime>_<tag>/``: the log ``<tag>.log``; in
-training, every TRAIN.CHECKPOINT_INTERVAL epochs,
-``checkpoints/checkpoint_epoch-E_step-S.pth`` in the reference layout, then,
-with TRAIN.VALIDATE, a pass over the val split; with TRAIN.SAVE_NPZ /
+into ``<SYS.OUTPUT_DIR>/<datetime>_<tag>/``: the log ``<tag>.log``; a
+TensorBoard event file (``utils/tb_native.py``: ``train/lr_<k>`` and
+``train/<loss>`` every SYS.LOG_INTERVAL steps, ``train/epoch_time`` and
+``train/ETA`` per epoch, ``val/<metric>``, ``test/<metric>``); in training,
+every TRAIN.CHECKPOINT_INTERVAL epochs, after the validation (TRAIN.VALIDATE)
+``checkpoints/checkpoint_epoch-E_step-S.pth`` in the reference layout and its
+resume file (``pipelines/checkpoint.py``); with TRAIN.SAVE_NPZ /
 TEST.SAVE_NPZ, ``results/epoch{E}-{TAG}-step{S}.npz`` archives of a few
 steps' results. An evaluation (``validate``, ``test``) weights each batch's
 losses by its true sample count, so the ragged last batch counts as what it
 holds, and adds the FGD of the pose encoder's latents (Voice2Pose).
-Resume is not ported yet.
+
+A run continues another: ``resume_from`` (a checkpoint, its run directory or
+its ``checkpoints/``; weights and resume file, into the same directory), or
+TRAIN.AUTO_RESUME (this tag's newest checkpoint that loads). TRAIN.PRETRAIN_FROM
+starts a new run from a ``.pth``'s weights with fresh optimizers. With
+TRAIN.CHECKPOINT_ON_PREEMPT a SIGTERM ends the run after the step (or chunk)
+in flight with a checkpoint stamped (epoch - 1, global step) and exit code
+143. Batches reach the card from page-locked memory, the next one's copy
+enqueued a step ahead; with DATASET.CACHING and DATASET.DEVICE_CACHE the
+train set is staged on the card once and a step's batch is one gather there;
+TRAIN.STEPS_PER_DISPATCH = K > 1 runs K steps in one CUDA graph
+(``pipelines/graphed.py``). SYS.PROFILE opens a ``torch.profiler`` window.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import signal
 import time
 from datetime import datetime
 from types import SimpleNamespace
@@ -25,22 +40,31 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..datasets.gesture_dataset import EpochBatches, GestureDataset, collate
+from ..datasets.gesture_dataset import (CachedLoader, EpochBatches, GestureDataset, collate,
+                                        to_torch)
 from ..ops.fgd import compute_fgd
 from ..utils.device import resolve_device
+from ..utils.tb_native import NativeTBWriter
+from ..utils.weights import read_pth
 from . import pose2pose, voice2pose
+from .checkpoint import (checkpoint_name, find_auto_resume_candidates, read_resume,
+                         resolve_checkpoint, resume_path, save_checkpoint)
+from .graphed import ChunkRunner, index_tensor
 
 log = logging.getLogger(__name__)
 
 PIPELINES = {
     "Voice2Pose": SimpleNamespace(state=voice2pose.Voice2PoseTrainState,
                                   train_step=voice2pose.train_step,
-                                  eval_step=voice2pose.eval_step),
+                                  eval_step=voice2pose.eval_step,
+                                  device_keys=voice2pose.DEVICE_KEYS),
     "Pose2Pose": SimpleNamespace(state=pose2pose.Pose2PoseTrainState,
                                  train_step=pose2pose.train_step,
-                                 eval_step=pose2pose.eval_step),
+                                 eval_step=pose2pose.eval_step,
+                                 device_keys=pose2pose.DEVICE_KEYS),
 }
 FGD_KEYS = ("mu_pred", "logvar_pred", "mu_gt", "logvar_gt")
+DEVICE_CACHE_MODES = ("auto", "on", "off")
 
 
 def pipeline(cfg) -> SimpleNamespace:
@@ -53,7 +77,7 @@ def pipeline(cfg) -> SimpleNamespace:
 def check_trainer_options(cfg, evaluates: bool) -> None:
     """Raise for what the port lacks: NotImplementedError for the options not
     ported yet (TEST.SAVE_VIDEO only where the run evaluates), ValueError for
-    an unknown pipeline."""
+    an unknown pipeline or option value."""
     p = pipeline(cfg)
     todo = {"TRAIN.SAVE_VIDEO": (cfg.TRAIN.SAVE_VIDEO, "pose videos", 13),
             "TEST.SAVE_VIDEO": (evaluates and cfg.TEST.SAVE_VIDEO, "pose videos", 13)}
@@ -61,22 +85,33 @@ def check_trainer_options(cfg, evaluates: bool) -> None:
         if on:
             raise NotImplementedError(f"{key} True ({what}) is not ported yet: ROADMAP.md "
                                       f"queue A, item {item}; pass {key} False")
+    if cfg.DATASET.DEVICE_CACHE not in DEVICE_CACHE_MODES:
+        raise ValueError(f"DATASET.DEVICE_CACHE {cfg.DATASET.DEVICE_CACHE!r}: one of "
+                         f"{DEVICE_CACHE_MODES}")
+    if cfg.TRAIN.STEPS_PER_DISPATCH < 1:
+        raise ValueError(f"TRAIN.STEPS_PER_DISPATCH {cfg.TRAIN.STEPS_PER_DISPATCH}: >= 1")
     if p is PIPELINES["Voice2Pose"]:
         voice2pose.check_supported(cfg)
 
 
-def train_loader(cfg) -> torch.utils.data.DataLoader:
+def train_loader(cfg, device=None):
     """The train split in the JAX loader's batches (``loader.batch_sampler
-    .set_epoch`` picks the epoch's shuffle), read by SYS.NUM_WORKERS worker
-    processes that live as long as the loader."""
+    .set_epoch`` picks the epoch's shuffle): with DATASET.CACHING a
+    ``CachedLoader`` over the split's SoA arrays, else SYS.NUM_WORKERS worker
+    processes that live as long as the loader. Batches for the card
+    (``device``) come in page-locked memory."""
     dataset = GestureDataset(cfg.DATASET.ROOT_DIR, cfg.DATASET.SPEAKER, cfg)
     if len(dataset) < cfg.TRAIN.BATCH_SIZE:
         raise ValueError(f"{len(dataset)} train clips make no full batch of "
                          f"TRAIN.BATCH_SIZE {cfg.TRAIN.BATCH_SIZE}")
+    pin = device is not None and torch.device(device).type == "cuda"
+    batches = EpochBatches(len(dataset), cfg.TRAIN.BATCH_SIZE, cfg.SYS.SEED)
+    if cfg.DATASET.CACHING:
+        return CachedLoader(dataset, batches, pin)
     workers = cfg.SYS.NUM_WORKERS
     return torch.utils.data.DataLoader(
-        dataset, batch_sampler=EpochBatches(len(dataset), cfg.TRAIN.BATCH_SIZE, cfg.SYS.SEED),
-        collate_fn=collate, num_workers=workers, persistent_workers=workers > 0)
+        dataset, batch_sampler=batches, collate_fn=collate, num_workers=workers,
+        persistent_workers=workers > 0, pin_memory=pin)
 
 
 def eval_loader(cfg) -> torch.utils.data.DataLoader:
@@ -89,6 +124,71 @@ def eval_loader(cfg) -> torch.utils.data.DataLoader:
     return torch.utils.data.DataLoader(
         dataset, batch_size=cfg.TEST.BATCH_SIZE, shuffle=False, drop_last=False,
         collate_fn=collate, num_workers=cfg.SYS.NUM_WORKERS)
+
+
+def _to_device(batch, device):
+    if isinstance(batch, dict):
+        return {k: _to_device(v, device) for k, v in batch.items()}
+    return batch.to(device, non_blocking=True)
+
+
+def device_cache_reason(cfg, loader, device_keys) -> str:
+    """'' when the train set can be staged on the device for ``loader``, else
+    the reason it cannot (the JAX ``_device_cache_eligible``; the port is one
+    process, so JAX's multi-process reason has no counterpart)."""
+    if cfg.DATASET.DEVICE_CACHE == "off":
+        return "DATASET.DEVICE_CACHE off"
+    if getattr(loader.dataset, "split", None) != "train":
+        return "not the train loader"
+    if not device_keys:
+        return "pipeline declares no device keys"
+    if not cfg.DATASET.CACHING:
+        return "needs DATASET.CACHING (SoA arrays)"
+    if cfg.TRAIN.SAVE_VIDEO or cfg.TRAIN.SAVE_NPZ:
+        return "per-step artifact saving needs host batches"
+    return ""
+
+
+def stage_device_cache(cfg, loader, device, device_keys) -> Tuple[Optional[dict], str]:
+    """The train split's ``device_keys`` as tensors on ``device``, staged once
+    for the run, and the line to log; ``(None, why)`` where the cache cannot
+    engage (DATASET.DEVICE_CACHE 'auto'). 'on' raises ValueError instead."""
+    reason = device_cache_reason(cfg, loader, device_keys)
+    if not reason:
+        soa = loader.dataset.materialize()
+        host = {k: soa[k] for k in device_keys}
+        nbytes = sum(a.nbytes for v in host.values()
+                     for a in (v.values() if isinstance(v, dict) else [v]))
+        limit = cfg.DATASET.DEVICE_CACHE_MAX_MB * 1e6
+        if nbytes > limit:
+            reason = (f"train set ({nbytes / 1e6:.0f} MB) exceeds "
+                      f"DATASET.DEVICE_CACHE_MAX_MB ({limit / 1e6:.0f} MB)")
+    if reason:
+        if cfg.DATASET.DEVICE_CACHE == "on":
+            raise ValueError(f"DATASET.DEVICE_CACHE on, but: {reason}")
+        return None, f"device cache disabled: {reason}"
+    return _to_device(to_torch(host), device), (
+        f"device-resident train cache engaged: {nbytes / 1e6:.0f} MB on {device}, "
+        "per-step host traffic = one (B,) index array")
+
+
+def device_prefetch(loader, device):
+    """The loader's batches on ``device``, the next batch's host-to-device copy
+    enqueued before the current batch is handed out (the JAX
+    ``_device_prefetch``). The copies go on the current stream from the
+    loader's page-locked memory: the host never waits for them, and the
+    step that reads a batch is queued after its copy."""
+    if torch.device(device).type != "cuda":
+        yield from loader
+        return
+    prev = None
+    for batch in loader:
+        nxt = _to_device(batch, device)
+        if prev is not None:
+            yield prev
+        prev = nxt
+    if prev is not None:
+        yield prev
 
 
 def save_results(base_path: str, tag: str, step: int, epoch: int,
@@ -105,40 +205,194 @@ def _line(values: Dict[str, object]) -> str:
     return "".join(f"{k}: {float(v):.5f}  " for k, v in values.items())
 
 
-def train_epoch(state, loader: torch.utils.data.DataLoader, epoch: int,
-                global_step: int = 0, base_path: Optional[str] = None
-                ) -> Tuple[int, Dict[str, torch.Tensor]]:
-    """One epoch (``epoch`` counts from 1): every batch through the pipeline's
-    train step, a log line every SYS.LOG_INTERVAL steps, TRAIN.NUM_RESULT_SAMPLE
-    result archives with TRAIN.SAVE_NPZ (into ``base_path``), then the
-    schedulers' step. Returns the steps taken and the last step's losses."""
-    cfg = state.cfg
-    step_fn = pipeline(cfg).train_step
-    loader.batch_sampler.set_epoch(epoch)
-    n, tic = len(loader), time.perf_counter()
-    every = max(1, n // cfg.TRAIN.NUM_RESULT_SAMPLE)
-    losses: Dict[str, torch.Tensor] = {}
-    for t, batch in enumerate(loader, 1):
-        losses, results = step_fn(state, batch)
-        if t % cfg.SYS.LOG_INTERVAL == 0:
-            per_step = (time.perf_counter() - tic) / cfg.SYS.LOG_INTERVAL
-            tic = time.perf_counter()
-            msg = (f"[TRAIN] epoch: {epoch}/{cfg.TRAIN.NUM_EPOCHS}  step: {t}/{n}  "
-                   f"global_step: {global_step + t}  time: {per_step:.3f}  ")
-            msg += "".join(f"lr_{k}: {lr:.1e}  " for k, lr in state.learning_rates().items())
-            log.info(msg + _line(losses))
-        if cfg.TRAIN.SAVE_NPZ and base_path is not None and t % every == 0:
-            save_results(base_path, "TRAIN", t, epoch, results)
-    state.end_epoch()
-    return n, losses
+class Preemption:
+    """With TRAIN.CHECKPOINT_ON_PREEMPT, a SIGTERM handler that sets ``flag``;
+    the old handler comes back on exit. A non-main thread cannot install one
+    (ValueError) and runs without it, as in JAX. JAX agrees on the flag across
+    hosts with an allgather; the port is one process, so its own flag is the
+    decision."""
+
+    def __init__(self, enabled: bool):
+        self.enabled, self.flag, self.old, self.installed = enabled, False, None, False
+
+    def _on_sigterm(self, signum, frame) -> None:
+        self.flag = True
+        log.warning("SIGTERM received: will checkpoint after the in-flight step and exit")
+
+    def __enter__(self):
+        if self.enabled:
+            try:
+                self.old = signal.signal(signal.SIGTERM, self._on_sigterm)
+                self.installed = True
+            except ValueError:  # not the main thread
+                pass
+        return self
+
+    def __exit__(self, *exc):
+        if self.installed:
+            signal.signal(signal.SIGTERM, self.old if self.old is not None else signal.SIG_DFL)
+
+
+class Profiler:
+    """SYS.PROFILE: a ``torch.profiler`` window (host and, on the card, CUDA
+    activity) over the global steps [START_STEP, START_STEP + NUM_STEPS),
+    opened and closed by range at the steps ``at`` sees, so under
+    TRAIN.STEPS_PER_DISPATCH on chunk boundaries (the JAX ``_maybe_profile``).
+    The Chrome trace goes to OUT_DIR or ``<run>/profile``."""
+
+    def __init__(self, cfg, base_path: Optional[str], device: torch.device):
+        self.cfg, self.device, self.prof, self.first = cfg.SYS.PROFILE, device, None, 0
+        self.out = self.cfg.OUT_DIR or os.path.join(base_path or ".", "profile")
+
+    def at(self, global_step: int) -> None:
+        if not self.cfg.ENABLED:
+            return
+        start, end = self.cfg.START_STEP, self.cfg.START_STEP + self.cfg.NUM_STEPS
+        if self.prof is None and start <= global_step < end:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+            os.makedirs(self.out, exist_ok=True)
+            self.prof, self.first = profile(activities=acts), global_step
+            self.prof.start()
+            log.info("starting torch.profiler trace at global step %d -> %s", global_step,
+                     self.out)
+        elif self.prof is not None and global_step >= end:
+            self.close(global_step - 1)
+
+    def close(self, last_step: int) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        path = os.path.join(self.out, f"trace_steps-{self.first}-{last_step}.json")
+        self.prof.export_chrome_trace(path)
+        self.prof = None
+        log.info("stopped torch.profiler trace: %s", path)
+
+
+def checkpoint_path(base_path: str, epoch: int, global_step: int) -> str:
+    return os.path.join(base_path, "checkpoints", checkpoint_name(epoch, global_step))
+
+
+class TrainLoop:
+    """The epochs of one run over ``loader``: each batch through the
+    pipeline's train step, from the host (prefetched to the card) or, with
+    ``cache`` (``stage_device_cache``), gathered on the device in chunks of
+    ``chunk`` steps (CUDA graphs on the card when ``chunk`` > 1, see
+    ``pipelines/graphed.py``). A log line (and TensorBoard scalars into
+    ``writer``) every SYS.LOG_INTERVAL steps; TRAIN.NUM_RESULT_SAMPLE result
+    archives with TRAIN.SAVE_NPZ; a preemption check after every step or
+    chunk; the profiler window; the schedulers' step at the epoch's end. With
+    ``collect``, ``history`` keeps every step's loss row (device tensors, in
+    ``names``' order)."""
+
+    def __init__(self, state, loader, cache: Optional[dict] = None, chunk: int = 1,
+                 base_path: Optional[str] = None, writer=None,
+                 preempt: Optional[Preemption] = None, profiler: Optional[Profiler] = None,
+                 collect: bool = False):
+        self.state, self.loader, self.cache = state, loader, cache
+        self.cfg = state.cfg
+        self.step_fn = pipeline(self.cfg).train_step
+        self.base_path, self.writer, self.preempt = base_path, writer, preempt
+        self.profiler = profiler or Profiler(self.cfg, base_path, state.device)
+        self.chunk = chunk if cache is not None else 1
+        self.runner = None if cache is None else ChunkRunner(
+            state, self.step_fn, cache, graphed=self.chunk > 1 and state.device.type == "cuda")
+        self.history = [] if collect else None
+        self.names = None
+        self.tic = time.perf_counter()
+
+    def epoch(self, epoch: int, global_step: int = 0) -> Tuple[int, Dict[str, torch.Tensor]]:
+        """One epoch (``epoch`` counts from 1) from ``global_step``; returns
+        the global step after it and the last step's losses."""
+        self.loader.batch_sampler.set_epoch(epoch)
+        self.tic = time.perf_counter()
+        if self.runner is not None:
+            global_step, losses = self._chunks(epoch, global_step)
+        else:
+            global_step, losses = self._steps(epoch, global_step)
+        self.state.end_epoch()
+        return global_step, losses
+
+    def _steps(self, epoch, global_step):
+        cfg, n = self.cfg, len(self.loader)
+        every = max(1, n // cfg.TRAIN.NUM_RESULT_SAMPLE)
+        losses: Dict[str, torch.Tensor] = {}
+        for t, batch in enumerate(device_prefetch(self.loader, self.state.device), 1):
+            global_step += 1
+            self.profiler.at(global_step)
+            losses, results = self.step_fn(self.state, batch)
+            if self.history is not None:
+                self.names = self.names or list(losses)
+                self.history.append(torch.stack([losses[k].float() for k in self.names])[None])
+            if t % cfg.SYS.LOG_INTERVAL == 0:
+                self._log_step(epoch, t, n, global_step, losses)
+            if cfg.TRAIN.SAVE_NPZ and self.base_path is not None and t % every == 0:
+                save_results(self.base_path, "TRAIN", t, epoch, results)
+            self._check_preempt(epoch, global_step)
+        return global_step, losses
+
+    def _chunks(self, epoch, global_step):
+        cfg, li = self.cfg, self.cfg.SYS.LOG_INTERVAL
+        schedule = index_tensor(np.stack(self.loader.batch_sampler.index_batches()),
+                                self.state.device)  # the epoch's (n, B) indices, copied once
+        n, t, losses = len(schedule), 0, {}
+        for c0 in range(0, n, self.chunk):
+            chunk = schedule[c0:c0 + self.chunk]
+            self.profiler.at(global_step + 1)
+            rows = self.runner.run(chunk)
+            self.names = self.runner.names
+            if self.history is not None:
+                self.history.append(rows)
+            logged = [j for j in range(len(chunk)) if (t + j + 1) % li == 0]
+            if logged:
+                host = rows[logged].cpu()
+                for i, j in enumerate(logged):
+                    self._log_step(epoch, t + j + 1, n, global_step + j + 1,
+                                   dict(zip(self.names, host[i])))
+            losses = dict(zip(self.names, rows[-1]))
+            t += len(chunk)
+            global_step += len(chunk)
+            self._check_preempt(epoch, global_step)
+        return global_step, losses
+
+    def _log_step(self, epoch, t, n, global_step, losses) -> None:
+        cfg = self.cfg
+        per_step = (time.perf_counter() - self.tic) / cfg.SYS.LOG_INTERVAL
+        self.tic = time.perf_counter()
+        lrs = self.state.learning_rates()
+        values = {k: float(v) for k, v in losses.items()}
+        msg = (f"[TRAIN] epoch: {epoch}/{cfg.TRAIN.NUM_EPOCHS}  step: {t}/{n}  "
+               f"global_step: {global_step}  time: {per_step:.3f}  ")
+        msg += "".join(f"lr_{k}: {lr:.1e}  " for k, lr in lrs.items())
+        log.info(msg + _line(values))
+        if self.writer is not None:
+            for k, lr in lrs.items():
+                self.writer.add_scalar(f"train/lr_{k}", lr, global_step)
+            for k, v in values.items():
+                self.writer.add_scalar(f"train/{k}", v, global_step)
+
+    def _check_preempt(self, epoch: int, global_step: int) -> None:
+        if self.preempt is None or not self.preempt.flag:
+            return
+        # stamped epoch - 1: a resume redoes the interrupted epoch from its start
+        save_checkpoint(self.state, checkpoint_path(self.base_path, epoch - 1, global_step),
+                        epoch - 1, global_step)
+        log.warning("Preemption checkpoint saved (epoch %d, step %d); exiting 143",
+                    epoch - 1, global_step)
+        raise SystemExit(143)
 
 
 def evaluate(state, loader: torch.utils.data.DataLoader, epoch: int = 0,
-             base_path: Optional[str] = None) -> Dict[str, float]:
+             base_path: Optional[str] = None, writer=None) -> Dict[str, float]:
     """One pass of the pipeline's eval step over ``loader`` (epoch 0: a test
     run, tagged TEST; else a validation, VAL). Returns the epoch's losses and
     metrics, each batch weighted by its true sample count, and FGD_mu and
-    FGD_mu_logvar when the pipeline gives pose-encoder latents."""
+    FGD_mu_logvar when the pipeline gives pose-encoder latents; each goes to
+    ``writer`` as ``val/<k>`` or ``test/<k>`` at step ``epoch``."""
     cfg = state.cfg
     tag = "TEST" if epoch == 0 else "VAL"
     eval_fn = pipeline(cfg).eval_step
@@ -171,66 +425,155 @@ def evaluate(state, loader: torch.utils.data.DataLoader, epoch: int = 0,
     counter = f"epoch: {epoch}/{cfg.TRAIN.NUM_EPOCHS}  " if tag == "VAL" else ""
     log.info(f"[{tag}] {counter}val_time: {(time.perf_counter() - tic) / 60:.1f} min  "
              f"num_samples: {num}  " + _line(metrics))
+    if writer is not None:
+        for k, v in metrics.items():
+            writer.add_scalar(f"{tag.lower()}/{k}", v, epoch)
+        writer.flush()
     return metrics
 
 
 class _RunDir:
-    """``<SYS.OUTPUT_DIR>/<datetime>_<tag>/`` and its log file, attached to this
-    module's logger while the run lasts."""
+    """``<SYS.OUTPUT_DIR>/<datetime>_<tag>/`` (or ``path``, an existing run's
+    directory, which a resume writes on into) and its log file, attached to
+    this module's logger while the run lasts, and its TensorBoard writer."""
 
-    def __init__(self, cfg, tag: str, subdirs=()):
-        stamp = str(datetime.now()).replace(".", "-").replace(":", "-").replace(" ", "_")
-        self.path = os.path.join(cfg.SYS.OUTPUT_DIR, f"{stamp}_{tag}")
-        os.makedirs(self.path)
+    def __init__(self, cfg, tag: str, subdirs=(), path: Optional[str] = None):
+        if path is None:
+            stamp = str(datetime.now()).replace(".", "-").replace(":", "-").replace(" ", "_")
+            path = os.path.join(cfg.SYS.OUTPUT_DIR, f"{stamp}_{tag}")
+            os.makedirs(path)
+        self.path = path
         for d in subdirs:
-            os.makedirs(os.path.join(self.path, d))
+            os.makedirs(os.path.join(self.path, d), exist_ok=True)
         self.handler = logging.FileHandler(os.path.join(self.path, f"{tag}.log"))
         self.handler.setFormatter(logging.Formatter("%(asctime)s [%(levelname)-0.5s] %(message)s"))
+        self.writer = None
 
     def __enter__(self):
         log.addHandler(self.handler)
         log.setLevel(logging.INFO)  # the run's log file takes every line
+        self.writer = NativeTBWriter(self.path)
         return self
 
     def __exit__(self, *exc):
+        self.writer.close()
         log.removeHandler(self.handler)
         self.handler.close()
 
 
-def train(cfg, tag: str = "train", device="cuda") -> Dict[str, object]:
-    """Train from a seeded init for TRAIN.NUM_EPOCHS epochs. Returns the epochs
-    and steps taken, the last losses, the last validation's metrics (with
-    TRAIN.VALIDATE), the last checkpoint and the run's directory."""
+def _auto_resume(cfg, tag: str) -> Optional[str]:
+    """TRAIN.AUTO_RESUME: the newest checkpoint of this tag whose ``.pth`` and
+    resume file both load; one that does not is skipped with a log line (a
+    save cut off mid-write falls back to the one before)."""
+    for cand in find_auto_resume_candidates(cfg.SYS.OUTPUT_DIR, tag):
+        try:
+            read_pth(cand)
+            read_resume(cand)
+        except Exception as exc:  # noqa: BLE001 - any load failure skips the candidate
+            log.warning("AUTO_RESUME: skipping unrestorable checkpoint %s (%s)", cand, exc)
+            continue
+        log.warning("AUTO_RESUME: continuing from %s", cand)
+        return cand
+    return None
+
+
+def _resolve_resume(resume_from: str) -> str:
+    """``--resume_from``'s checkpoint; raises where it has no resume file."""
+    if not os.path.exists(resume_from):
+        raise FileNotFoundError(f"--resume_from {resume_from!r}: not found")
+    ckpt = resolve_checkpoint(resume_from)
+    if not os.path.exists(resume_path(ckpt)):
+        raise ValueError(
+            f"--resume_from {ckpt}: no resume file {os.path.basename(resume_path(ckpt))} beside "
+            "it, so no optimizer moments, schedulers or step counts to continue with (a .pth "
+            "alone, such as a JAX export or a reference checkpoint, holds weights only); use "
+            f"--pretrain_from {ckpt} to continue from its weights with fresh optimizers")
+    return ckpt
+
+
+def train(cfg, tag: str = "train", device="cuda",
+          resume_from: Optional[str] = None) -> Dict[str, object]:
+    """Train for TRAIN.NUM_EPOCHS epochs: from a seeded init, from
+    TRAIN.PRETRAIN_FROM's weights, or on from ``resume_from`` (or, with
+    TRAIN.AUTO_RESUME, this tag's newest checkpoint). Returns the epochs and
+    steps, the last losses, the last validation's metrics (with
+    TRAIN.VALIDATE), the last checkpoint, the run's directory, and the
+    checkpoint it resumed from where it did."""
     device = resolve_device(device)
     check_trainer_options(cfg, evaluates=cfg.TRAIN.VALIDATE)
-    loader = train_loader(cfg)
+    p = pipeline(cfg)
+    if resume_from is None and cfg.TRAIN.AUTO_RESUME:
+        resume_from = _auto_resume(cfg, tag)
+    ckpt = _resolve_resume(resume_from) if resume_from is not None else None
+    pretrain = cfg.TRAIN.PRETRAIN_FROM if ckpt is None else None
+    if pretrain is not None and not os.path.exists(pretrain):
+        raise FileNotFoundError(f"TRAIN.PRETRAIN_FROM {pretrain!r}: not found")
+    loader = train_loader(cfg, device)
     val = eval_loader(cfg) if cfg.TRAIN.VALIDATE else None
-    state = pipeline(cfg).state(cfg, len(loader.dataset), device)
-    with _RunDir(cfg, tag, ["checkpoints"]) as run:
+    cache, cache_line = stage_device_cache(cfg, loader, device, p.device_keys)
+    K = cfg.TRAIN.STEPS_PER_DISPATCH
+    state = p.state(cfg, len(loader.dataset), device,
+                    capturable=device.type == "cuda" and K > 1 and cache is not None)
+    epoch = global_step = 0
+    if ckpt is not None:
+        state.load_pth(ckpt)
+        resume = read_resume(ckpt)
+        state.load_train_state(resume)
+        epoch, global_step = int(resume["epoch"]), int(resume["global_step"])
+    elif pretrain is not None:
+        state.load_pth(pretrain)  # weights only: the optimizers stay fresh
+    run_path = os.path.dirname(os.path.dirname(ckpt)) if ckpt is not None else None
+    checkpoint, losses, metrics = None, {}, {}
+    with _RunDir(cfg, tag, ["checkpoints"], run_path) as run, \
+            Preemption(cfg.TRAIN.CHECKPOINT_ON_PREEMPT) as preempt:
+        profiler = Profiler(cfg, run.path, state.device)
+        if ckpt is not None:
+            log.info("Resuming from checkpoint: %s (epoch %d, global step %d)", ckpt, epoch,
+                     global_step)
+        elif pretrain is not None:
+            log.info("Loading from pretrained model: %s", pretrain)
+        log.info(cache_line)
+        if K > 1 and cache is None:
+            log.warning("TRAIN.STEPS_PER_DISPATCH=%d needs the device-resident train cache "
+                        "(%s); falling back to one dispatch per step", K,
+                        cache_line.split(": ", 1)[1])
         log.info("Training begins: %s, %d train clips, %d steps an epoch, device %s",
                  cfg.PIPELINE_TYPE, len(loader.dataset), len(loader), state.device)
-        global_step, checkpoint, losses, metrics = 0, None, {}, {}
-        for epoch in range(1, cfg.TRAIN.NUM_EPOCHS + 1):
-            tic = time.perf_counter()
-            steps, losses = train_epoch(state, loader, epoch, global_step, run.path)
-            global_step += steps
-            if epoch % cfg.TRAIN.CHECKPOINT_INTERVAL == 0:
-                checkpoint = os.path.join(run.path, "checkpoints",
-                                          f"checkpoint_epoch-{epoch}_step-{global_step}.pth")
-                state.save_checkpoint(checkpoint, epoch, global_step)
-                log.info("Saved checkpoint to: %s", checkpoint)
-                if val is not None:
-                    log.info("Validation begins!")
-                    metrics = evaluate(state, val, epoch, run.path)
-            if state.device.type == "cuda":
-                torch.cuda.synchronize(state.device)  # the epoch's time is the card's too
-            log.info("[TRAIN] epoch %d/%d: %d steps in %.3f s", epoch,
-                     cfg.TRAIN.NUM_EPOCHS, steps, time.perf_counter() - tic)
+        loop = TrainLoop(state, loader, cache, K, run.path, run.writer, preempt, profiler)
+        epoch_times = []
+        try:
+            while epoch < cfg.TRAIN.NUM_EPOCHS:
+                epoch += 1
+                tic, start = time.perf_counter(), global_step
+                global_step, losses = loop.epoch(epoch, global_step)
+                if epoch % cfg.TRAIN.CHECKPOINT_INTERVAL == 0:
+                    if val is not None:
+                        log.info("Validation begins!")
+                        metrics = evaluate(state, val, epoch, run.path, run.writer)
+                    # after the validation, whose draws the resume file's generator holds
+                    checkpoint = checkpoint_path(run.path, epoch, global_step)
+                    save_checkpoint(state, checkpoint, epoch, global_step)
+                    log.info("Saved checkpoint to: %s", checkpoint)
+                if state.device.type == "cuda":
+                    torch.cuda.synchronize(state.device)  # the epoch's time is the card's too
+                took = time.perf_counter() - tic
+                log.info("[TRAIN] epoch %d/%d: %d steps in %.3f s", epoch,
+                         cfg.TRAIN.NUM_EPOCHS, global_step - start, took)
+                epoch_times.append(took / 3600)
+                eta = (cfg.TRAIN.NUM_EPOCHS - epoch) * float(np.mean(epoch_times[-10:]))
+                log.info("[TRAIN] epoch_time: %.2f hours  ETA: %.2f hours", took / 3600, eta)
+                run.writer.add_scalar("train/epoch_time", took / 3600, epoch)
+                run.writer.add_scalar("train/ETA", eta, epoch)
+                run.writer.flush()
+        finally:
+            profiler.close(global_step)
     out = {"epochs": cfg.TRAIN.NUM_EPOCHS, "steps": global_step,
            "losses": {k: float(v) for k, v in losses.items()},
            "checkpoint": checkpoint, "output_dir": run.path}
     if val is not None:
         out["val_metrics"] = metrics
+    if ckpt is not None:
+        out["resumed_from"] = ckpt
     return out
 
 
@@ -249,6 +592,6 @@ def test(cfg, checkpoint: str, tag: str = "test", device="cuda") -> Dict[str, ob
     with _RunDir(cfg, tag) as run:
         log.info("Testing begins: %s from %s, %d clips, device %s", cfg.PIPELINE_TYPE,
                  checkpoint, len(loader.dataset), state.device)
-        metrics = evaluate(state, loader, 0, run.path)
+        metrics = evaluate(state, loader, 0, run.path, run.writer)
     return {"metrics": metrics, "num_samples": len(loader.dataset),
             "checkpoint": checkpoint, "output_dir": run.path}

@@ -28,6 +28,9 @@ One train step, in order (``train_step``):
   6. L2 and lip-sync metrics on pixel-space poses.
 The learning rates follow MultiStepLR at epochs [N-10, N-2], gamma 0.1, when
 TRAIN.LR_SCHEDULER is set (``make_scheduler``; ``end_epoch`` steps it).
+A state built ``capturable`` (the trainer's choice for K train steps in one
+CUDA graph, TRAIN.STEPS_PER_DISPATCH > 1) takes Adams with ``capturable=True``
+and each learning rate in a device tensor, which the schedulers move in place.
 
 One eval step (``eval_step``, the JAX ``_build_eval_step``): the mel, the
 generator in eval mode (on the card: the mel kernel, then the conv1 and stem
@@ -51,8 +54,12 @@ from ..ops.pose import get_final_results, multiply_batch, step_metrics
 from ..utils.device import resolve_device
 from ..utils.weights import (check_bank_rows, external_code_bank, pose_encoder_from_ae_pth,
                              read_pth)
+from .checkpoint import atomic_save
 
 ADAM = dict(betas=(0.9, 0.999), eps=1e-8)
+# the batch keys a train step reads: what the trainer stages on the card
+DEVICE_KEYS = ("audio", "poses", "clip_index", "speaker_stat")
+_GROUP_FLAGS = ("capturable", "foreach", "fused", "differentiable")
 
 
 def check_supported(cfg) -> None:
@@ -82,6 +89,58 @@ def make_scheduler(optimizer: torch.optim.Optimizer, cfg):
                                                 gamma=0.1)
 
 
+def make_adam(params, lr: float, device: torch.device, capturable: bool,
+              weight_decay: float = 0.0) -> torch.optim.Adam:
+    """torch Adam; ``capturable``: replayable in a CUDA graph, its bias
+    correction computed on the device and its learning rate a float32 device
+    tensor (a graph reads the tensor, so a scheduler must fill it in place)."""
+    if capturable:
+        return torch.optim.Adam(params, lr=torch.tensor(float(lr), device=device),
+                                weight_decay=weight_decay, capturable=True, **ADAM)
+    return torch.optim.Adam(params, lr=lr, weight_decay=weight_decay, **ADAM)
+
+
+def step_schedulers(schedulers, optimizers) -> None:
+    """Step every scheduler. A learning rate held in a tensor stays that
+    tensor: where a scheduler put a new object in its place, the value is
+    copied into the old tensor, which goes back (a captured graph reads it)."""
+    held = [(g, g["lr"]) for o in optimizers for g in o.param_groups
+            if isinstance(g["lr"], torch.Tensor)]
+    for s in schedulers:
+        s.step()
+    for g, t in held:
+        if g["lr"] is not t:
+            t.fill_(float(g["lr"]))
+            g["lr"] = t
+
+
+def load_optimizer(opt: torch.optim.Optimizer, saved: dict) -> None:
+    """``opt.load_state_dict(saved)``, keeping what this run chose over what
+    the saved run chose: its capturable/foreach flags, a learning rate held in
+    a tensor (filled with the saved value in place) or as a float, and the
+    step counts where its policy keeps them (on the parameter's device when
+    capturable, else on the CPU)."""
+    live = [{k: v for k, v in g.items() if k != "params"} for g in opt.param_groups]
+    opt.load_state_dict(saved)
+    for g, was in zip(opt.param_groups, live):
+        for k in _GROUP_FLAGS:
+            if k in was:
+                g[k] = was[k]
+        for k in ("lr", "initial_lr"):
+            if k not in g or k not in was:
+                continue
+            if isinstance(was[k], torch.Tensor):
+                was[k].fill_(float(g[k]))
+                g[k] = was[k]
+            else:
+                g[k] = float(g[k])
+        on_device = g.get("capturable") or g.get("fused")
+        for p in g["params"]:
+            st = opt.state.get(p, {})
+            if "step" in st:
+                st["step"] = st["step"].to(p.device if on_device else "cpu", torch.float32)
+
+
 def mel_buffers() -> Dict[str, torch.Tensor]:
     """The reference models' ``mel_transfm`` buffers, as checkpoints carry them."""
     return {"mel_transfm.spectrogram.window":
@@ -92,10 +151,10 @@ def mel_buffers() -> Dict[str, torch.Tensor]:
 
 def save_pth(path: str, state_dict: Dict[str, torch.Tensor], epoch: int, step: int) -> None:
     """The reference checkpoint layout: ``{epoch, step, model_state_dict}``
-    with every key under ``module.``."""
-    torch.save({"epoch": int(epoch), "step": int(step),
-                "model_state_dict": {f"module.{k}": v.detach().cpu()
-                                     for k, v in state_dict.items()}}, path)
+    with every key under ``module.``, written to a temporary name and renamed."""
+    atomic_save({"epoch": int(epoch), "step": int(step),
+                 "model_state_dict": {f"module.{k}": v.detach().cpu()
+                                      for k, v in state_dict.items()}}, path)
 
 
 @contextlib.contextmanager
@@ -117,9 +176,14 @@ class Voice2PoseTrainState:
     and the step count (the JAX package's ``Voice2Pose.state``). Weights come
     from a ``torch.Generator`` seeded with SYS.SEED, the eval codes' draws from
     another on the device. ``num_train`` None (a test run) leaves the bank's
-    rows to the checkpoint."""
+    rows to the checkpoint. ``capturable`` (default: on the card with
+    TRAIN.STEPS_PER_DISPATCH > 1) builds the Adams for CUDA-graph replay.
+    Weights and banks load into the existing tensors and a learning-rate
+    tensor is filled in place, as a captured graph holds them by address;
+    the trainer loads the optimizers' state before its first capture."""
 
-    def __init__(self, cfg, num_train: Optional[int], device="cuda"):
+    def __init__(self, cfg, num_train: Optional[int], device="cuda",
+                 capturable: Optional[bool] = None):
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -149,23 +213,25 @@ class Voice2PoseTrainState:
                 self.pose_encoder.load_state_dict(
                     pose_encoder_from_ae_pth(ae_ckpt, self.pose_encoder.state_dict()),
                     strict=True)
-        self.opt_g = torch.optim.Adam(self.generator.parameters(), lr=cfg.TRAIN.LR,
-                                      weight_decay=cfg.TRAIN.WD, **ADAM)
-        self.opt_code = None if self.external_code else torch.optim.Adam(
-            [self.clips_code], lr=cfg.TRAIN.LR * cc.LR_SCALING, **ADAM)
-        self.schedulers = [s for s in (make_scheduler(o, cfg)
-                                       for o in (self.opt_g, self.opt_code) if o) if s]
+        if capturable is None:
+            capturable = self.device.type == "cuda" and cfg.TRAIN.STEPS_PER_DISPATCH > 1
+        self.capturable = capturable
+        self.opt_g = make_adam(self.generator.parameters(), cfg.TRAIN.LR, self.device,
+                               capturable, cfg.TRAIN.WD)
+        self.opt_code = None if self.external_code else make_adam(
+            [self.clips_code], cfg.TRAIN.LR * cc.LR_SCALING, self.device, capturable)
+        self.schedulers = [s for s in (make_scheduler(o, cfg) for o in self.optimizers()) if s]
         self.rng = torch.Generator(device=self.device).manual_seed(cfg.SYS.SEED)
         self.step = 0
 
     def _set_bank(self, bank: torch.Tensor) -> None:
         check_bank_rows(bank, self.num_train)
         bank = bank.float().to(self.device)
-        if self.external_code:
-            self.clips_code = bank.clone()
-        elif tuple(bank.shape) == tuple(self.clips_code.shape):
+        if tuple(bank.shape) == tuple(self.clips_code.shape):
             with torch.no_grad():
                 self.clips_code.copy_(bank)
+        elif self.external_code:
+            self.clips_code = bank.clone()
         elif self.num_train is None:  # a test run takes the checkpoint's rows
             self.clips_code = nn.Parameter(bank.clone())
         else:
@@ -198,15 +264,23 @@ class Voice2PoseTrainState:
         if self.pose_encoder is not None and pe:
             self.pose_encoder.load_state_dict(pe, strict=True)
 
+    def optimizers(self) -> list:
+        return [o for o in (self.opt_g, self.opt_code) if o is not None]
+
     def end_epoch(self) -> None:
-        for s in self.schedulers:
-            s.step()
+        step_schedulers(self.schedulers, self.optimizers())
 
     def learning_rates(self) -> Dict[str, float]:
-        lrs = {"G": self.opt_g.param_groups[0]["lr"]}
+        lrs = {"G": float(self.opt_g.param_groups[0]["lr"])}
         if self.opt_code is not None:
-            lrs["ClipCode"] = self.opt_code.param_groups[0]["lr"]
+            lrs["ClipCode"] = float(self.opt_code.param_groups[0]["lr"])
         return lrs
+
+    def train_state_dict(self) -> Dict[str, object]:
+        return train_state_dict(self)
+
+    def load_train_state(self, sd: Dict[str, object]) -> None:
+        load_train_state(self, sd)
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
         """The reference ``Voice2PoseModel`` keys (without ``module.``): the mel
@@ -221,6 +295,30 @@ class Voice2PoseTrainState:
 
     def save_checkpoint(self, path: str, epoch: int, step: int) -> None:
         save_pth(path, self.state_dict(), epoch, step)
+
+
+def train_state_dict(state) -> Dict[str, object]:
+    """What a resume needs beyond the weights: the optimizers' and schedulers'
+    ``state_dict()``s, the step count and the noise generator's state."""
+    return {"optimizers": [o.state_dict() for o in state.optimizers()],
+            "schedulers": [s.state_dict() for s in state.schedulers],
+            "step": int(state.step), "rng": state.rng.get_state()}
+
+
+def load_train_state(state, sd: Dict[str, object]) -> None:
+    """Load ``train_state_dict``'s output into ``state`` (``load_optimizer``
+    for each optimizer)."""
+    opts = state.optimizers()
+    if len(sd["optimizers"]) != len(opts) or len(sd["schedulers"]) != len(state.schedulers):
+        raise ValueError(f"the resume state holds {len(sd['optimizers'])} optimizers and "
+                         f"{len(sd['schedulers'])} schedulers; this configuration has "
+                         f"{len(opts)} and {len(state.schedulers)}")
+    for o, saved in zip(opts, sd["optimizers"]):
+        load_optimizer(o, saved)
+    for s, saved in zip(state.schedulers, sd["schedulers"]):
+        s.load_state_dict(saved)
+    state.step = int(sd["step"])
+    state.rng.set_state(sd["rng"])
 
 
 def generator_losses(pred: torch.Tensor, gt: torch.Tensor, code: torch.Tensor,

@@ -1,19 +1,25 @@
 """Where the SDT-BP train step's device time goes, by kernel, on one CUDA card.
 
     python -m speechdrivestemplates_tpu_torch.profile_train [--batch 32] [--iters 5]
+        [--device-cache] [--steps-per-dispatch K]
 
 Builds the bf16 train state (weights seeded with 0, a bank of 64 codes) and
 runs ``pipelines.voice2pose.train_step`` on a device-resident batch (random
 audio and normalized poses, the speaker's statistics), first timed by CUDA
-events, then under ``torch.profiler``. Prints one JSON line: the step's mean
+events, then under ``torch.profiler``. With ``--device-cache`` each step's
+batch is gathered from a device-resident train set of 64 random clips, as
+the trainer's DATASET.DEVICE_CACHE gathers it (``pipelines/graphed.py``);
+``--steps-per-dispatch K`` > 1 runs K such steps in one CUDA graph (the state
+built capturable; the first chunk eager, the second captured, then replays),
+and ``--iters`` counts chunks. Prints one JSON line: the step's mean
 time; from the profiled steps alone (the card's activity only is traced),
 their mean time by CUDA events around the same window, the device-busy time
-per step and the idle share of that window; the device time per
-step by kind (the mel kernel, cuDNN convolution forward / data gradient /
-weight gradient, the Adam updates, the rest), the kernels ranked by device
-time, the forward + backward time of the stem's three plain layers at the
-step's shapes, and the launch counts of the port's kernels over the
-warm-up and timed steps.
+per step and the idle share of that window, the kernels per step; the device
+time per step by kind (the mel kernel, cuDNN convolution forward / data
+gradient / weight gradient, the Adam updates, the rest), the kernels ranked
+by device time, the forward + backward time of the stem's three plain layers
+at the step's shapes, and the launch counts of the port's kernels over the
+warm-up and timed steps (host launches, captured, replayed, executed).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from . import kernels
 from .config import sdt_bp
 from .datasets.speakers_stat import get_speaker_stat
 from .ops.stem import stem_plain
+from .pipelines.graphed import ChunkRunner
 from .pipelines.voice2pose import Voice2PoseTrainState, train_step
 from .utils.device import resolve_device
 from .utils.timing import card, cuda_ms
@@ -65,17 +72,40 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m speechdrivestemplates_tpu_torch.profile_train")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--device-cache", action="store_true",
+                    help="gather each batch from a device-resident train set")
+    ap.add_argument("--steps-per-dispatch", type=int, default=1, metavar="K",
+                    help="K > 1: K steps in one CUDA graph (needs --device-cache)")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
+    K = args.steps_per_dispatch
+    if K > 1 and not args.device_cache:
+        ap.error("--steps-per-dispatch > 1 needs --device-cache")
     from torch.profiler import ProfilerActivity, profile
 
     cfg = sdt_bp()
     num_train = 64
-    state = Voice2PoseTrainState(cfg, num_train, dev)
+    state = Voice2PoseTrainState(cfg, num_train, dev, capturable=K > 1)
     batch = train_batch(cfg, args.batch, num_train, dev)
     kernels.reset_launch_counts()
-    step_ms = cuda_ms(lambda: train_step(state, batch), [()], args.iters)
-    launches = dict(kernels.LAUNCHES)
+    if args.device_cache:
+        cache = train_batch(cfg, num_train, num_train, dev, seed=1)
+        runner = ChunkRunner(state, train_step, cache, graphed=K > 1)
+        rng = np.random.RandomState(0)
+        chunk = torch.from_numpy(np.stack([rng.permutation(num_train)[:args.batch]
+                                           for _ in range(K)])).to(dev)
+
+        def unit():
+            runner.run(chunk)
+
+        unit()  # the first chunk eager; with K > 1 the next one captures
+    else:
+        def unit():
+            train_step(state, batch)
+    unit()
+    step_ms = cuda_ms(unit, [()], args.iters) / K  # a unit is K steps
+    launches = {"host": dict(kernels.LAUNCHES), "captured": dict(kernels.CAPTURED),
+                "replayed": dict(kernels.REPLAYED), "executed": dict(kernels.executions())}
 
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     # the card's activity only: recording every host-side op as well would
@@ -84,17 +114,18 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         start.record()
         for _ in range(args.iters):
-            train_step(state, batch)
+            unit()
         end.record()
         torch.cuda.synchronize()
-    window_ms = start.elapsed_time(end) / args.iters
+    steps = args.iters * K
+    window_ms = start.elapsed_time(end) / steps
     rows = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith("Optimizer."):
             continue  # operator rows and the optimizer's annotated range repeat kernels' time
         t = e.self_device_time_total
         if t > 0:
-            rows.append((e.key, t / 1e3 / args.iters, e.count // args.iters))
+            rows.append((e.key, t / 1e3 / steps, e.count / steps))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     if busy > window_ms:  # one stream: kernels cannot overlap within the window
@@ -117,12 +148,14 @@ def main(argv=None) -> None:
     state.opt_g.zero_grad(set_to_none=True)
     print(json.dumps({
         "card": card(), "batch": args.batch, "precision": cfg.TRAIN.PRECISION,
+        "device_cache": args.device_cache, "steps_per_dispatch": K,
         "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
         "profiled_step_ms": window_ms, "device_busy_ms": busy,
         "idle_share": 1 - busy / window_ms,
+        "kernels_per_step": sum(r[2] for r in rows),
         "by_kind_ms": {k: round(v, 4) for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])},
         "stem_fwd_bwd_ms": stem_ms, "launches": launches,
-        "kernels": [{"name": k[:90], "ms": round(ms, 4), "calls": n}
+        "kernels": [{"name": k[:90], "ms": round(ms, 4), "calls": round(n, 2)}
                     for k, ms, n in rows[:30]]}))
 
 

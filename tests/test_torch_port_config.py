@@ -77,3 +77,40 @@ def test_new_keys_parse_like_yacs():
         for part in key.split("."):
             got, want = getattr(got, part), want[part]
         assert got == want and type(got) is type(want), (key, got, want)
+
+
+def test_trainer_option_keys_have_the_jax_defaults_and_parse_like_yacs():
+    """The keys of the trainer's options (resume and pretrain, preemption,
+    the caches, K steps a dispatch, the profiler window) exist with the JAX
+    defaults on every preset, and take command-line values as yacs'
+    merge_from_list does."""
+    from speechdrivestemplates_tpu.config import get_cfg_defaults
+
+    ref = get_cfg_defaults()
+    keys = ["DATASET.CACHING", "DATASET.DEVICE_CACHE", "DATASET.DEVICE_CACHE_MAX_MB",
+            "TRAIN.PRETRAIN_FROM", "TRAIN.AUTO_RESUME", "TRAIN.CHECKPOINT_ON_PREEMPT",
+            "TRAIN.STEPS_PER_DISPATCH", "SYS.PROFILE.ENABLED", "SYS.PROFILE.START_STEP",
+            "SYS.PROFILE.NUM_STEPS", "SYS.PROFILE.OUT_DIR"]
+
+    def get(node, key, index):
+        for part in key.split("."):
+            node = node[part] if index else getattr(node, part)
+        return node
+
+    for preset in C.PRESETS.values():
+        for key in keys:
+            got, want = get(preset(), key, False), get(ref, key, True)
+            assert got == want and type(got) is type(want), (key, got, want)
+    opts = ["DATASET.CACHING", "True", "DATASET.DEVICE_CACHE", "on",
+            "DATASET.DEVICE_CACHE_MAX_MB", "512", "TRAIN.PRETRAIN_FROM", "/ckpt/a.pth",
+            "TRAIN.AUTO_RESUME", "True", "TRAIN.CHECKPOINT_ON_PREEMPT", "False",
+            "TRAIN.STEPS_PER_DISPATCH", "8", "SYS.PROFILE.ENABLED", "True",
+            "SYS.PROFILE.START_STEP", "20", "SYS.PROFILE.NUM_STEPS", "3",
+            "SYS.PROFILE.OUT_DIR", "/tmp/prof"]
+    cfg = C.apply_overrides(C.sdt_bp(), list(opts))
+    ref.merge_from_list(list(opts))
+    for key in opts[0::2]:
+        got, want = get(cfg, key, False), get(ref, key, True)
+        assert got == want and type(got) is type(want), (key, got, want)
+    with pytest.raises(ValueError, match="Type mismatch"):
+        C.apply_overrides(C.sdt_bp(), ["TRAIN.STEPS_PER_DISPATCH", "2.5"])

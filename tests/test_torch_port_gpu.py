@@ -319,3 +319,206 @@ def test_stem_kernels_match_plain_at_the_ragged_eval_batch(cuda, dtype):
     else:
         err = (got.float() - ref).abs().flatten()
         assert torch.quantile(err, 0.99) < 0.05 and err.mean() < 0.02
+
+
+def _device_cache(cfg, n, pipeline):
+    """A device-resident train set of ``n`` random clips in the loader's form,
+    the keys ``pipeline`` stages."""
+    from speechdrivestemplates_tpu_torch.pipelines.trainer import PIPELINES
+    from speechdrivestemplates_tpu_torch.profile_train import train_batch
+
+    batch = train_batch(cfg, n, n, "cuda", seed=3)
+    return {k: batch[k] for k in PIPELINES[pipeline].device_keys}
+
+
+def _graph_cfg(pipeline, *opts):
+    from speechdrivestemplates_tpu_torch.config import apply_overrides, pose2pose, sdt_bp
+
+    cfg = sdt_bp() if pipeline == "Voice2Pose" else pose2pose()
+    return apply_overrides(cfg, ["TRAIN.BATCH_SIZE", "2", "TRAIN.STEPS_PER_DISPATCH", "3",
+                                 *opts])
+
+
+def _run_chunks(pipeline, cfg, cache, chunks, graphed, between=None):
+    """A capturable train state through ``chunks`` of cache rows, graphed or
+    eagerly; ``between(state)`` runs after each chunk. Returns the state and
+    the stacked loss rows."""
+    from speechdrivestemplates_tpu_torch.pipelines.graphed import ChunkRunner
+    from speechdrivestemplates_tpu_torch.pipelines.trainer import PIPELINES
+
+    p = PIPELINES[pipeline]
+    state = p.state(cfg, cache["clip_index"].shape[0], "cuda", capturable=True)
+    runner = ChunkRunner(state, p.train_step, cache, graphed=graphed)
+    rows = []
+    for c in chunks:
+        rows.append(runner.run(torch.tensor(c, device="cuda")))
+        if between is not None:
+            between(state)
+    torch.cuda.synchronize()
+    return state, torch.cat(rows), runner
+
+
+# warm-up chunk (eager), a K = 3 chunk (captured, replayed), again (replayed),
+# a remainder of 2 (captured, replayed)
+_CHUNKS = [[[0, 1], [2, 3], [4, 5]], [[6, 7], [1, 0], [3, 2]], [[5, 4], [7, 6], [0, 2]],
+           [[1, 3], [4, 6]]]
+
+
+@pytest.mark.parametrize("pipeline", ["Voice2Pose", "Pose2Pose"])
+def test_graphed_chunks_match_eager_steps(cuda, pipeline):
+    """K = 3 steps a CUDA graph against the same steps run eagerly under the
+    same capturable Adam, on the same cache rows: the loss rows, every weight,
+    bank and BN statistic, the Adams' moments and the noise generator's
+    offset agree bit for bit (cuDNN deterministic on both sides). For
+    Voice2Pose the mel kernel ran once per step: eager launches, then
+    captured ones counted apart from the replays that ran them."""
+    from speechdrivestemplates_tpu_torch import kernels
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = _graph_cfg(pipeline)
+        cache = _device_cache(cfg, 8, pipeline)
+        kernels.reset_launch_counts()
+        g_state, g_rows, runner = _run_chunks(pipeline, cfg, cache, _CHUNKS, graphed=True)
+        counts = (dict(kernels.LAUNCHES), dict(kernels.CAPTURED), dict(kernels.REPLAYED),
+                  dict(kernels.executions()))
+        e_state, e_rows, _ = _run_chunks(pipeline, cfg, cache, _CHUNKS, graphed=False)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    steps = sum(len(c) for c in _CHUNKS)
+    assert sorted(runner.graphs) == [2, 3]
+    assert g_rows.shape == (steps, len(runner.names)) and torch.isfinite(g_rows).all()
+    assert torch.equal(g_rows, e_rows), (g_rows - e_rows).abs().max()
+    assert g_state.step == e_state.step == steps
+    g_sd = g_state.state_dict()
+    for k, v in e_state.state_dict().items():
+        assert torch.equal(g_sd[k], v), k
+    for go, eo in zip(g_state.optimizers(), e_state.optimizers()):
+        for p_g, p_e in zip(go.param_groups[0]["params"], eo.param_groups[0]["params"]):
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(go.state[p_g][key], eo.state[p_e][key]), key
+    assert g_state.rng.get_offset() == e_state.rng.get_offset()
+    if pipeline == "Voice2Pose":
+        launches, captured, replayed, executed = counts
+        assert launches["mel"] == 3 + 3 + 2 and captured["mel"] == 3 + 2
+        assert replayed["mel"] == 3 + 3 + 2 and executed["mel"] == steps
+    else:
+        assert not counts[0]
+
+
+def test_graph_replays_draw_fresh_pose2pose_noise(cuda):
+    """At LR 0 the weights stay put and train-mode BN takes batch statistics,
+    so two replays of one graph on the same rows differ only by their
+    reparameterization draws: they must differ, and the noise generator's
+    offset must advance with each replay as eager steps advance it."""
+    cfg = _graph_cfg("Pose2Pose", "TRAIN.LR", "0.0")
+    cache = _device_cache(cfg, 8, "Pose2Pose")
+    same = [[0, 1], [2, 3], [4, 5]]
+    offsets = []
+    state, rows, _ = _run_chunks("Pose2Pose", cfg, cache, [same] * 4, graphed=True,
+                                 between=lambda s: offsets.append(s.rng.get_offset()))
+    first_replay, second_replay = rows[6:9], rows[9:12]
+    assert not torch.equal(first_replay, second_replay)
+    steps = [b - a for a, b in zip(offsets, offsets[1:])]
+    assert steps[0] == steps[1] == steps[2] > 0, offsets
+
+
+def test_scheduler_moves_the_tensor_lr_that_replays_read(cuda):
+    """MultiStepLR at each epoch end (after every chunk here) fills the
+    learning-rate tensor the graphs captured, in place (same tensor, same
+    address), and the next replays step with the new rate: graphed and eager
+    runs with the same epoch ends stay bit-equal, and the rate fell by 10x at
+    the milestone."""
+    cfg = _graph_cfg("Pose2Pose", "TRAIN.NUM_EPOCHS", "3")  # milestones [-7, 1]
+    cache = _device_cache(cfg, 8, "Pose2Pose")
+    seen = []
+
+    def epoch_end(state):
+        group = state.opt.param_groups[0]
+        before = (group["lr"], group["lr"].data_ptr())
+        state.end_epoch()
+        seen.append(before + (group["lr"], group["lr"].data_ptr(), float(group["lr"])))
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        g_state, g_rows, _ = _run_chunks("Pose2Pose", cfg, cache, _CHUNKS, True, epoch_end)
+        e_state, e_rows, _ = _run_chunks("Pose2Pose", cfg, cache, _CHUNKS, False,
+                                         lambda s: s.end_epoch())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert all(t0 is t1 and p0 == p1 for t0, p0, t1, p1, _ in seen)
+    assert seen[0][4] == pytest.approx(cfg.TRAIN.LR * 0.1, rel=1e-6) == seen[-1][4]
+    assert g_state.learning_rates() == e_state.learning_rates()
+    assert torch.equal(g_rows, e_rows)
+    e_sd = e_state.state_dict()
+    for k, v in g_state.state_dict().items():
+        assert torch.equal(v, e_sd[k]), k
+
+
+def test_graph_replay_launch_counts(cuda):
+    """A replay runs the kernels its capture recorded: after a warm-up chunk,
+    one capture and four replays of K = 3 Voice2Pose steps, LAUNCHES counts
+    the host launches (3 eager + 3 recorded), CAPTURED the 3 recorded,
+    REPLAYED 3 per replay, and executions() one mel kernel per step."""
+    from speechdrivestemplates_tpu_torch import kernels
+
+    cfg = _graph_cfg("Voice2Pose")
+    cache = _device_cache(cfg, 8, "Voice2Pose")
+    kernels.reset_launch_counts()
+    _run_chunks("Voice2Pose", cfg, cache, [_CHUNKS[0]] * 5, graphed=True)
+    assert kernels.LAUNCHES["mel"] == 6 and kernels.CAPTURED["mel"] == 3
+    assert kernels.REPLAYED["mel"] == 12 and kernels.executions()["mel"] == 15
+
+
+@pytest.mark.parametrize("saved_capturable", [False, True])
+def test_resume_state_loads_across_capturable_modes(cuda, saved_capturable):
+    """A resume file written by a run with the plain Adam loads into a
+    capturable state (K > 1) and the other way round: the loading state keeps
+    its own flags, its learning-rate tensor (same object, filled with the
+    saved rate) or float, and its step counts where its policy keeps them;
+    the moments are the saved ones, and the next step runs (graphed for the
+    capturable state)."""
+    from speechdrivestemplates_tpu_torch.pipelines.pose2pose import Pose2PoseTrainState
+
+    cfg = _graph_cfg("Pose2Pose", "TRAIN.NUM_EPOCHS", "3")
+    cache = _device_cache(cfg, 8, "Pose2Pose")
+    if saved_capturable:
+        saved = _run_chunks("Pose2Pose", cfg, cache, _CHUNKS[:2], graphed=True,
+                            between=lambda s: s.end_epoch())[0]
+    else:
+        saved = _run_plain_chunks(cfg, cache)
+    sd = saved.train_state_dict()
+    live = Pose2PoseTrainState(cfg, 8, "cuda", capturable=not saved_capturable)
+    lr_before = live.opt.param_groups[0]["lr"]
+    live.load_train_state(sd)
+    group = live.opt.param_groups[0]
+    assert group["capturable"] is (not saved_capturable)
+    assert float(group["lr"]) == pytest.approx(cfg.TRAIN.LR * 0.1, rel=1e-6)
+    if not saved_capturable:
+        assert group["lr"] is lr_before and isinstance(lr_before, torch.Tensor)
+    else:
+        assert isinstance(group["lr"], float)
+    for p, q in zip(group["params"], saved.opt.param_groups[0]["params"]):
+        st, ref = live.opt.state[p], saved.opt.state[q]
+        assert st["step"].device.type == ("cuda" if not saved_capturable else "cpu")
+        assert torch.equal(st["exp_avg"], ref["exp_avg"]) and float(st["step"]) == 6
+    from speechdrivestemplates_tpu_torch.pipelines.graphed import ChunkRunner
+    from speechdrivestemplates_tpu_torch.pipelines.pose2pose import train_step
+
+    runner = ChunkRunner(live, train_step, cache, graphed=not saved_capturable)
+    for c in _CHUNKS[2:]:
+        assert torch.isfinite(runner.run(torch.tensor(c, device="cuda"))).all()
+
+
+def _run_plain_chunks(cfg, cache):
+    """Two chunks of eager steps under the plain Adam, an epoch end after each."""
+    from speechdrivestemplates_tpu_torch.pipelines.graphed import ChunkRunner
+    from speechdrivestemplates_tpu_torch.pipelines.pose2pose import (Pose2PoseTrainState,
+                                                                     train_step)
+
+    state = Pose2PoseTrainState(cfg, 8, "cuda", capturable=False)
+    runner = ChunkRunner(state, train_step, cache, graphed=False)
+    for c in _CHUNKS[:2]:
+        runner.run(torch.tensor(c, device="cuda"))
+        state.end_epoch()
+    return state

@@ -82,9 +82,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(tmp_path):
                    "SYS.OUTPUT_DIR", str(tmp_path / "out")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main.main(["--device", "cuda", "TRAIN.VALIDATE", "False"])
+    # resume and pretrain: the card first too, before the missing path is looked for
+    for flag in ("--resume_from", "--pretrain_from"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main.main([flag, str(tmp_path / "missing.pth"),
+                       "SYS.OUTPUT_DIR", str(tmp_path / "out")])
     assert not (tmp_path / "out").exists()
-    with pytest.raises(SystemExit):  # only the flags it implements
-        main.main(["--device", "cpu", "--resume_from", "x"])
 
 
 def test_test_and_pose2pose_entry_points_need_cuda(tmp_path):

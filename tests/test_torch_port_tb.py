@@ -1,0 +1,119 @@
+"""The port's TensorBoard scalars (``utils/tb_native.py``) against the JAX
+package's event reader and CRC, and the tags a training run and a test run
+write, at the JAX trainer's steps; the ``SYS.PROFILE`` window's trace."""
+
+import glob
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from speechdrivestemplates_tpu.utils import tb_native as jax_tb
+from speechdrivestemplates_tpu_torch.config import apply_overrides, pose2pose
+from speechdrivestemplates_tpu_torch.datasets.synthetic import make_synthetic_speaker
+from speechdrivestemplates_tpu_torch.pipelines import trainer
+from speechdrivestemplates_tpu_torch.utils import tb_native
+
+
+@pytest.fixture(scope="module")
+def speaker_root(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("tb") / "speakers")
+    make_synthetic_speaker(root, "oliver", num_train=8, num_dev=3, seed=5)
+    return root
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small CPU steps run fastest on one intra-op thread, and the suite runs
+    several test files at once on the same cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _cfg(root, out, *opts):
+    return apply_overrides(pose2pose(), [
+        "DATASET.ROOT_DIR", root, "SYS.OUTPUT_DIR", out, "TRAIN.BATCH_SIZE", "2",
+        "TEST.BATCH_SIZE", "2", "TRAIN.SAVE_VIDEO", "False", "TEST.SAVE_VIDEO", "False",
+        "TEST.SAVE_NPZ", "False", "SYS.NUM_WORKERS", "0", *opts])
+
+
+def _events(run_dir):
+    files = glob.glob(os.path.join(run_dir, "events.out.tfevents.*"))
+    assert len(files) == 1, files
+    return jax_tb.read_events(files[0])
+
+
+def test_crc32c_known_vectors_and_the_jax_crc():
+    # RFC 3720 test vectors for CRC-32C (Castagnoli)
+    assert tb_native.crc32c(b"") == 0x00000000
+    assert tb_native.crc32c(b"123456789") == 0xE3069283
+    assert tb_native.crc32c(bytes(32)) == 0x8A9136AA
+    assert tb_native.crc32c(bytes(range(32))) == 0x46DD794E
+    rng = np.random.RandomState(0)
+    for n in (1, 7, 8, 255, 4096):
+        data = rng.bytes(n)
+        assert tb_native.crc32c(data) == jax_tb._crc32c(data)
+        assert tb_native.masked_crc(data) == jax_tb._masked_crc(data)
+
+
+def test_scalars_read_back_through_the_jax_reader(tmp_path):
+    w = tb_native.NativeTBWriter(str(tmp_path))
+    written = [("train/loss", 1.25, 1), ("train/lr_G", 1e-4, 1), ("val/FGD_mu", 22.52, 10),
+               ("train/loss", -3.5e-7, 2 ** 40), ("test/L2_dist", 152.197, 0)]
+    for tag, value, step in written:
+        w.add_scalar(tag, value, step)
+    w.close()
+    got = jax_tb.read_events(w.path)
+    assert [(e["tag"], e["value"], e["step"]) for e in got] == \
+        [(t, float(np.float32(v)), s) for t, v, s in written]
+
+
+def test_a_training_run_writes_the_jax_tags_at_the_jax_steps(speaker_root, tmp_path):
+    """Two epochs of 4 steps, a log line every step, validation each epoch:
+    ``train/lr_optimizer`` and ``train/<loss>`` at global steps 1-8, the last
+    step's values those the run returns; ``train/epoch_time`` and
+    ``train/ETA`` and ``val/<metric>`` at epochs 1 and 2. A test run writes
+    ``test/<metric>`` at step 0, the metrics it returns."""
+    cfg = _cfg(speaker_root, str(tmp_path), "TRAIN.NUM_EPOCHS", "2", "SYS.LOG_INTERVAL", "1",
+               "TRAIN.VALIDATE", "True")
+    out = trainer.train(cfg, "tb", "cpu")
+    events = _events(out["output_dir"])
+    by_tag = {}
+    for e in events:
+        by_tag.setdefault(e["tag"], []).append((e["step"], e["value"]))
+    for k, v in out["losses"].items():
+        assert [s for s, _ in by_tag[f"train/{k}"]] == list(range(1, 9)), k
+        assert by_tag[f"train/{k}"][-1][1] == np.float32(v), k
+    assert [s for s, _ in by_tag["train/lr_optimizer"]] == list(range(1, 9))
+    # 2 epochs: MultiStepLR's milestone N - 2 = 0 scales the rate from the first step
+    assert by_tag["train/lr_optimizer"][0][1] == np.float32(cfg.TRAIN.LR * 0.1)
+    for tag in ("train/epoch_time", "train/ETA"):
+        assert [s for s, _ in by_tag[tag]] == [1, 2], tag
+    assert by_tag["train/ETA"][-1][1] == 0.0
+    for k, v in out["val_metrics"].items():
+        assert [s for s, _ in by_tag[f"val/{k}"]] == [1, 2], k
+        assert by_tag[f"val/{k}"][-1][1] == np.float32(v), k
+    with open(os.path.join(out["output_dir"], "tb.log")) as f:
+        assert f.read().count("[TRAIN] epoch_time: ") == 2
+
+    tested = trainer.test(cfg, out["checkpoint"], "tbtest", "cpu")
+    got = {e["tag"]: (e["step"], e["value"]) for e in _events(tested["output_dir"])}
+    assert got == {f"test/{k}": (0, float(np.float32(v))) for k, v in tested["metrics"].items()}
+
+
+def test_profile_window_writes_a_chrome_trace(speaker_root, tmp_path):
+    """SYS.PROFILE over global steps [2, 4) of a 4-step epoch: one window,
+    opened at step 2 and closed before step 4, its trace a JSON file under
+    ``<run>/profile``."""
+    cfg = _cfg(speaker_root, str(tmp_path), "TRAIN.NUM_EPOCHS", "1", "TRAIN.VALIDATE", "False",
+               "SYS.PROFILE.ENABLED", "True", "SYS.PROFILE.START_STEP", "2",
+               "SYS.PROFILE.NUM_STEPS", "2")
+    out = trainer.train(cfg, "prof", "cpu")
+    traces = glob.glob(os.path.join(out["output_dir"], "profile", "*.json"))
+    assert [os.path.basename(t) for t in traces] == ["trace_steps-2-3.json"]
+    with open(traces[0]) as f:
+        assert json.load(f)["traceEvents"]
