@@ -74,14 +74,30 @@ Phases, each of which must pass or the script exits non-zero:
               within rtol 1e-3, atol 1e-5; bit equality reported), and a run sent
               SIGTERM after its first logged step (exit 143, an epoch-(E-1) checkpoint
               with its resume file) that TRAIN.AUTO_RESUME continues to its end
+ 16. s2g      s2g-GAN (BN generator, no code, the LSGAN discriminator, global poses),
+              bf16, full width: (a) three requests (B = 1, 16, 128) through
+              build_serving_fn with BN statistics moved by three train-mode forwards:
+              the mel counter reads 1, 2, 3, conv1's and the stem's stay at 0 (the BN
+              encoder takes no InstanceNorm kernel); B = 128 held to an fp32 plain
+              forward (rel L2 < 0.05, corr > 0.999) and timed; (b) training at B = 32
+              on phase 10's speaker: one step launches mel once, conv1 and the stem
+              never; against an fp32 all-plain step at the same weights G_reg_loss and
+              D_pose_gan_loss within 2%, D's gradient at cosine >= 0.99 and G's at
+              >= 0.75 (a BN generator's bf16 gradient sits near 0.8 in JAX too); 30
+              steps at LR 1e-3 finite, G_reg_loss falling; the step's ms; (c) phase 15's
+              speaker staged on the card, two 50-step epochs at K = 1 (capturable Adams)
+              and K = 8: rows and weights, D's included, equal bit for bit; (d) through
+              the command line: 2 epochs with validation (phase 12's checkpoint as
+              AE_CHECKPOINT), --test_only of its checkpoint, --resume_from its epoch-1
+              checkpoint, and the serving CLI with --config_file on the final .pth
 Then one JSON line with every kernel's error, times, bound and launches (the mel
 kernel's count over the serving requests, the train phase's steps, the eval
-batches and phase 15's SDT-BP loops, whose CUDA graphs count a launch where it
-was captured, not where it was replayed; conv1's and the stem's over the
-serving requests and the eval batches),
+batches, phase 15's SDT-BP loops, whose CUDA graphs count a launch where it
+was captured, not where it was replayed, and phase 16's requests, steps and
+loops; conv1's and the stem's over the serving requests and the eval batches),
 the card's name and power limit, a JSON line with the train step's time, one
-with phases 12-14's numbers and one with phase 15's, and last
-{"ok": true, "device": {...}}.
+with phases 12-14's numbers, one with phase 15's and one with phase 16's, and
+last {"ok": true, "device": {...}}.
 
 Times are CUDA-event means over repeated calls after a warm-up; inputs rotate over
 three copies so that each call reads from device memory rather than the 50 MB L2.
@@ -853,15 +869,18 @@ def main() -> None:
     caches = {"Voice2Pose": cache_bp,
               "Pose2Pose": {k: cache_bp[k] for k in PIPELINES["Pose2Pose"].device_keys}}
 
-    def cached_loop(preset, K, capturable, deterministic):
+    def cached_loop(preset, K, capturable, deterministic, loader=None, cache=None):
         """Two 50-step epochs of the 1,600-clip speaker from the device cache
         at K steps a dispatch: the loop's steps/s in each epoch (host clock,
-        synchronized), every step's loss row, the launch counts, the state."""
+        synchronized), every step's loss row, the launch counts, the state.
+        ``loader`` and ``cache`` default to phase 15's (parted poses)."""
         cfg = apply_overrides(preset(), gopts + ["TRAIN.STEPS_PER_DISPATCH", str(K)])
-        state = PIPELINES[cfg.PIPELINE_TYPE].state(cfg, len(gloader.dataset), dev,
+        loader = gloader if loader is None else loader
+        cache = caches[cfg.PIPELINE_TYPE] if cache is None else cache
+        state = PIPELINES[cfg.PIPELINE_TYPE].state(cfg, len(loader.dataset), dev,
                                                    capturable=capturable)
         torch.backends.cudnn.deterministic = deterministic
-        loop = TrainLoop(state, gloader, caches[cfg.PIPELINE_TYPE], K, collect=True)
+        loop = TrainLoop(state, loader, cache, K, collect=True)
         kernels.reset_launch_counts()
         rates, gs = [], 0
         try:
@@ -1019,7 +1038,206 @@ def main() -> None:
     graph_line.update(resume_bitwise=resume_bitwise, resume_max_abs_diff=resume_err,
                       resume_s=resume_s, preempt_checkpoint=os.path.basename(pre_ck[0]),
                       preempt_s=preempt_s)
+
+    # ---- 16. s2g-GAN: serving, training, the graphed loop, the command line ----------
+    from speechdrivestemplates_tpu_torch.config import s2g
+
+    def in_kernels(counts):
+        return {n: counts.get(n, 0) for n in ("conv1", "stem")}
+
+    # (a) serving: seeded weights, BN statistics moved by a few train-mode forwards
+    scfg = s2g(precision="bf16")
+    model = build_model(scfg.VOICE2POSE.GENERATOR.NAME, scfg, device="cuda").train()
+    with torch.no_grad():
+        for _ in range(3):
+            model(M.mel_spectrogram_plain(dev_randn(16, L, scale=0.1)), 64, None)
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    check(not torch.equal(sd["audio_encoder.specgram_encoder_2d.0.0.norm.running_var"],
+                          torch.ones(64, device=dev)), "s2g: BN statistics did not move")
+    fn, has_code = build_serving_fn(scfg, sd, device="cuda")
+    check(not has_code, "s2g takes no template code")
+    requests = [dev_randn(b, L, scale=0.1) for b in (1, 16, 128)]
+    kernels.reset_launch_counts()
+    seen = []
+    for audio in requests:
+        poses = fn(audio)
+        torch.cuda.synchronize()
+        b = audio.shape[0]
+        check(poses.shape == (b, 64, 2, 121) and bool(torch.isfinite(poses).all()),
+              f"s2g poses at B={b}: {tuple(poses.shape)}")
+        seen.append(dict(kernels.LAUNCHES))
+    s_growth = {n: [s.get(n, 0) for s in seen] for n in ("mel", "conv1", "stem")}
+    check(s_growth == {"mel": [1, 2, 3], "conv1": [0, 0, 0], "stem": [0, 0, 0]},
+          f"s2g serving launches per request: {s_growth}")
+    report["mel"]["launches"] += 3
+    audio = requests[-1]
+    model16 = build_model(scfg.VOICE2POSE.GENERATOR.NAME, scfg, device="cuda")
+    model16.load_state_dict(sd)
+    scfg32 = s2g(precision="fp32")
+    model32 = build_model(scfg32.VOICE2POSE.GENERATOR.NAME, scfg32, device="cuda")
+    model32.load_state_dict(sd)
+    with torch.inference_mode():
+        out16 = model16(M.mel_spectrogram(audio), 64, None).double()
+        out32 = model32(M.mel_spectrogram_plain(audio), 64, None, plain=True).double()
+    s_rel = (torch.linalg.norm(out16 - out32) / torch.linalg.norm(out32)).item()
+    s_corr = torch.corrcoef(torch.stack([out16.flatten(), out32.flatten()]))[0, 1].item()
+    check(s_rel < 0.05 and s_corr > 0.999,
+          f"s2g bf16 forward vs fp32 plain: rel L2 {s_rel}, corr {s_corr}")
+    s_fwd_ms = cuda_ms(fn, [(audio,)], 20)
+    print(f"[s2g-serve] bf16 B=1,16,128 ok; launches after each request {s_growth}; B=128 vs "
+          f"fp32 plain: rel L2 {s_rel:.4e}, corr {s_corr:.6f}; forward {s_fwd_ms:.4f} ms = "
+          f"{128 * 64 / (s_fwd_ms / 1e3):.1f} pose-frames/s", flush=True)
+    del model16, model32, out16, out32, requests, fn
+
+    # (b) training, B = 32, on phase 10's speaker
+    sopts = opts + ["SYS.NUM_WORKERS", "8"]
+    stcfg = apply_overrides(s2g(), list(sopts))
+    sloader = train_loader(stcfg)
+    sloader.batch_sampler.set_epoch(1)
+    sbatches = list(sloader)
+    check("speaker_stat_global" in sbatches[0], "s2g batches lack speaker_stat_global")
+    state = Voice2PoseTrainState(stcfg, len(sloader.dataset), dev)
+    kernels.reset_launch_counts()
+    losses, _ = train_step(state, sbatches[0])
+    torch.cuda.synchronize()
+    one_step = dict(kernels.LAUNCHES)
+    check({n: one_step.get(n, 0) for n in ("mel", "conv1", "stem")}
+          == {"mel": 1, "conv1": 0, "stem": 0},
+          f"one s2g train step launched {one_step}: expected mel 1, conv1 0, stem 0")
+
+    def flat_grads(module):
+        return torch.cat([p.grad.double().flatten() for p in module.parameters()])
+
+    g16, d16 = flat_grads(state.generator), flat_grads(state.discriminator)
+    l16 = {k: losses[k].item() for k in ("G_reg_loss", "D_pose_gan_loss")}
+    state32 = Voice2PoseTrainState(apply_overrides(s2g(precision="fp32"), list(sopts)),
+                                   len(sloader.dataset), dev)
+    losses32, _ = train_step(state32, sbatches[0], plain=True)
+    torch.cuda.synchronize()
+    check(dict(kernels.LAUNCHES) == one_step, "the all-plain fp32 s2g step launched a kernel")
+    l32 = {k: losses32[k].item() for k in l16}
+    s_loss_rel = {k: abs(l16[k] - l32[k]) / abs(l32[k]) for k in l16}
+    cos = torch.nn.functional.cosine_similarity
+    s_cos = {"generator": cos(g16, flat_grads(state32.generator), dim=0).item(),
+             "discriminator": cos(d16, flat_grads(state32.discriminator), dim=0).item()}
+    # the BN generator's bf16 gradient sits at cosine ~0.8 from its fp32 one in
+    # both packages (train-mode BN leaves each encoder conv's weight gradient a
+    # small remainder of bf16-rounded terms: tests/test_torch_port_s2g_eval.py),
+    # so its gate is 0.75; D's is 0.99, SDT-BP's gate
+    check(all(r <= 0.02 for r in s_loss_rel.values()) and s_cos["discriminator"] >= 0.99
+          and s_cos["generator"] >= 0.75,
+          f"s2g bf16 step vs fp32 all-plain: losses {l16} vs {l32} (rel {s_loss_rel}), "
+          f"gradient cosines {s_cos}")
+    del state, state32, g16, d16
+
+    lcfg = apply_overrides(s2g(), sopts + ["TRAIN.LR", "1e-3"])
+    state = Voice2PoseTrainState(lcfg, len(sloader.dataset), dev)
+    history, epoch = [], 0
+    while len(history) < 30:
+        epoch += 1
+        sloader.batch_sampler.set_epoch(epoch)
+        for b in sloader:
+            step_losses, _ = train_step(state, b)
+            history.append(torch.stack([v.float() for v in step_losses.values()]))
+    torch.cuda.synchronize()
+    s_train = dict(kernels.LAUNCHES)
+    check(s_train.get("mel", 0) == 1 + len(history) and not any(in_kernels(s_train).values()),
+          f"s2g train launches {s_train} over {1 + len(history)} kernel-path steps")
+    report["mel"]["launches"] += s_train["mel"]
+    hist = torch.stack(history).cpu()
+    names = list(step_losses)
+    check(bool(torch.isfinite(hist).all()), f"non-finite s2g losses: {hist}")
+    reg = hist[:, names.index("G_reg_loss")].tolist()
+    s_first4, s_last4 = sum(reg[:4]) / 4, sum(reg[-4:]) / 4
+    check(s_last4 < s_first4, f"s2g G_reg_loss did not fall over {len(reg)} steps: first 4 "
+                              f"mean {s_first4}, last 4 mean {s_last4}")
+    s_step_ms = cuda_ms(lambda b: train_step(state, b), [(to_dev(b),) for b in sbatches], 20)
+    print(f"[s2g-train] bf16 B={TB}: one step launched mel 1, conv1 0, stem 0; vs fp32 "
+          f"all-plain: G_reg_loss rel {s_loss_rel['G_reg_loss']:.3e}, D_pose_gan_loss rel "
+          f"{s_loss_rel['D_pose_gan_loss']:.3e} (<= 0.02), gradient cosine G "
+          f"{s_cos['generator']:.6f} (>= 0.75), D {s_cos['discriminator']:.6f} (>= 0.99); "
+          f"{len(reg)} steps at LR 1e-3: G_reg_loss first-4 mean {s_first4:.5f} -> last-4 "
+          f"{s_last4:.5f}; step {s_step_ms:.4f} ms = {1e3 / s_step_ms:.2f} steps/s "
+          f"(device-resident batches)", flush=True)
+    del state, sbatches, sloader
+
+    # (c) the graphed loop: phase 15's 1,600 clips staged on the card, global poses
+    sgcfg = apply_overrides(s2g(), gopts + ["SYS.NUM_WORKERS", "8"])
+    sgloader = train_loader(sgcfg, dev)
+    cache_s2g, s_cache_line = stage_device_cache(sgcfg, sgloader, dev,
+                                                 PIPELINES["Voice2Pose"].device_keys)
+    check(cache_s2g is not None and "speaker_stat_global" in cache_s2g, s_cache_line)
+    s_loops = {}
+    for K in (1, 8):
+        s_loops[K] = cached_loop(s2g, K, True, True, sgloader, cache_s2g)
+        check(not any(in_kernels(s_loops[K].counts["launches"]).values()),
+              f"s2g K={K} launched {s_loops[K].counts}")
+        report["mel"]["launches"] += s_loops[K].counts["launches"]["mel"]
+    k1, k8 = s_loops[1], s_loops[8]
+    check(k8.graphs == [2, 8] and k8.counts["executed"].get("mel") == 100,
+          f"s2g K=8: graphs {k8.graphs}, counts {k8.counts}")
+    check(torch.equal(k8.rows, k1.rows),
+          f"s2g: K=8 loss rows differ from K=1's: max abs {(k8.rows - k1.rows).abs().max()}")
+    sd8, sd1 = k8.state.state_dict(), k1.state.state_dict()
+    check(any(k.startswith("netD_pose.") for k in sd1) and all(torch.equal(sd8[k], sd1[k])
+                                                                for k in sd1),
+          "s2g: K=8 weights (D's included) differ from K=1's after 100 steps")
+    print(f"[s2g-graphed] bf16 B={TB}, 1,600 clips on the card, two 50-step epochs: K=1 "
+          f"capturable {k1.rates[1]:.2f} steps/s, K=8 {k8.rates[1]:.2f} steps/s "
+          f"({1e3 / k8.rates[1]:.3f} ms; first epoch {k8.rates[0]:.2f}, captures included); "
+          f"K=8 rows and weights (D's included) = K=1's bit for bit; K=8 counts {k8.counts}",
+          flush=True)
+    s_graph = {"k1_capturable_steps_per_s": k1.rates, "k8_steps_per_s": k8.rates,
+               "k8_step_ms": 1e3 / k8.rates[1], "k8_counts": k8.counts,
+               "k8_rows_equal_k1": True}
+    del s_loops, k1, k8, cache_s2g, sgloader
     shutil.rmtree(long_root, ignore_errors=True)
+
+    # (d) the command line: train with validation, test, resume, serve
+    sruns = os.path.join(work, "s2g_runs")
+    shutil.rmtree(sruns, ignore_errors=True)
+    s2g_flags = ["--config_file", "configs/voice2pose_s2g.yaml"]
+    s2g_common = [*sopts, "TEST.SAVE_VIDEO", "False", "SYS.OUTPUT_DIR", sruns,
+                  "TRAIN.NUM_EPOCHS", "2", "TRAIN.VALIDATE", "True",
+                  "VOICE2POSE.POSE_ENCODER.AE_CHECKPOINT", ae_ckpt]
+    t0 = time.perf_counter()
+    c_s2g = main_cli(*s2g_flags, "--tag", "s2g", *s2g_common)
+    check(c_s2g["steps"] == 4 and np.isfinite(c_s2g["val_metrics"]["FGD_mu"])
+          and "D_pose_gan_loss" in c_s2g["losses"], f"s2g CLI line: {c_s2g}")
+    c_s2g_test = main_cli(*s2g_flags, "--tag", "s2g_test", "--test_only", "--checkpoint",
+                          c_s2g["checkpoint"], *s2g_common)
+    check(all(np.isfinite(c_s2g_test["metrics"].get(k, np.nan)) for k in test_keys),
+          f"s2g test CLI line: {c_s2g_test}")
+    ck1 = glob.glob(os.path.join(c_s2g["output_dir"], "checkpoints", "checkpoint_epoch-1_*.pth"))
+    check(len(ck1) == 1, f"s2g epoch-1 checkpoints: {ck1}")
+    c_s2g_resumed = main_cli(*s2g_flags, "--tag", "s2g", "--resume_from", ck1[0], *s2g_common)
+    check(c_s2g_resumed["steps"] == 4 and c_s2g_resumed["resumed_from"] == ck1[0],
+          f"s2g resumed CLI line: {c_s2g_resumed}")
+    s_served = os.path.join(work, "s2g_out.npz")
+    r = subprocess.run([sys.executable, "-m", "speechdrivestemplates_tpu_torch.serving",
+                        c_s2g_resumed["checkpoint"], wav_path, s_served, *s2g_flags,
+                        "--device", "cuda"],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"s2g serving CLI rc {r.returncode}:\n{r.stdout}\n{r.stderr}")
+    with np.load(s_served) as z:
+        got = z["poses"]
+    check(got.shape == (64, 2, 121) and bool(np.isfinite(got).all()),
+          f"poses served from the s2g checkpoint: {got.shape}")
+    s_cli_s = time.perf_counter() - t0
+    print(f"[s2g-cli] train 2 epochs with validation (FGD_mu "
+          f"{c_s2g['val_metrics']['FGD_mu']:.4f}) -> --test_only "
+          f"{ {k: round(c_s2g_test['metrics'][k], 4) for k in test_keys} } -> --resume_from "
+          f"epoch 1 -> serving CLI: {r.stdout.strip()}; {s_cli_s:.1f} s", flush=True)
+    s2g_line = {"s2g": {"card": card, "serve_ms_b128": s_fwd_ms,
+                        "serve_pose_frames_per_s": 128 * 64 / (s_fwd_ms / 1e3),
+                        "serve_rel_l2_vs_fp32_plain": s_rel, "serve_corr": s_corr,
+                        "serve_launches": s_growth, "train_step_ms": s_step_ms,
+                        "train_steps_per_s": 1e3 / s_step_ms,
+                        "bf16_vs_fp32_loss_rel": s_loss_rel, "bf16_vs_fp32_grad_cos": s_cos,
+                        "reg_loss_first4": s_first4, "reg_loss_last4": s_last4,
+                        "train_launches": s_train, "graphed": s_graph,
+                        "cli_test_metrics": c_s2g_test["metrics"], "cli_seconds": s_cli_s}}
 
     # ---- summary -----------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -1030,6 +1248,7 @@ def main() -> None:
     print(json.dumps(train_line))
     print(json.dumps(chain_line))
     print(json.dumps({"graphed": graph_line}))
+    print(json.dumps(s2g_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -4,8 +4,8 @@ Names and defaults follow the JAX package's yacs tree (``cfg.VOICE2POSE.
 GENERATOR.NORM`` and so on) so a reader finds each key's counterpart; only the
 keys the ported slices read exist here. The presets stand for the repository's
 ``configs/*.yaml`` (the port reads no YAML): ``sdt_bp()`` (the flagship,
-``configs/voice2pose_sdt_bp.yaml``), ``sdt_vae()`` and ``pose2pose()``, the
-Voice2Pose ones at ``TRAIN.PRECISION='bf16'``; ``preset_for_config_file`` picks
+``configs/voice2pose_sdt_bp.yaml``), ``sdt_vae()``, ``s2g()`` and
+``pose2pose()``, the Voice2Pose ones at ``TRAIN.PRECISION='bf16'``; ``preset_for_config_file`` picks
 one by the file's name. ``apply_overrides`` merges a flat ``KEY VALUE`` list as
 yacs' ``merge_from_list`` does.
 """
@@ -48,6 +48,10 @@ class PoseEncoderConfig:
 @dataclass
 class PoseDiscriminatorConfig:
     NAME: Optional[str] = None
+    LEAKY_RELU: bool = False
+    LAMBDA_GAN: float = 1.0
+    MOTION: bool = True  # score frame-to-frame differences, not poses
+    WHITE_LIST: Optional[list] = None  # keypoint indices the discriminator sees
 
 
 @dataclass
@@ -175,6 +179,20 @@ def sdt_vae(speaker: Optional[str] = "oliver", precision: str = "bf16") -> Confi
     return _voice2pose(speaker, precision, external_code=True)
 
 
+def s2g(speaker: Optional[str] = "oliver", precision: str = "bf16") -> Config:
+    """s2g-GAN, the paper's baseline (``configs/voice2pose_s2g.yaml``): a
+    code-less BN generator trained against the LSGAN
+    ``PoseSequenceDiscriminator`` (LAMBDA_GAN 0.1, leaky), on global poses."""
+    cfg = _voice2pose(speaker, precision, external_code=False)
+    cfg.VOICE2POSE.GENERATOR.NORM = "BN"
+    cfg.VOICE2POSE.GENERATOR.CLIP_CODE.DIMENSION = None
+    d = cfg.VOICE2POSE.POSE_DISCRIMINATOR
+    d.NAME, d.LAMBDA_GAN, d.LEAKY_RELU = "PoseSequenceDiscriminator", 0.1, True
+    cfg.DATASET.HIERARCHICAL_POSE = False
+    cfg.SYS.NUM_WORKERS = 16
+    return cfg
+
+
 def pose2pose(speaker: Optional[str] = "oliver", precision: str = "fp32") -> Config:
     """The Pose2Pose VAE (``configs/pose2pose.yaml``): its encoder is the FGD
     feature encoder, its ``clip_code_mu`` bank SDT-VAE's templates."""
@@ -187,15 +205,12 @@ def pose2pose(speaker: Optional[str] = "oliver", precision: str = "fp32") -> Con
 
 
 PRESETS = {"voice2pose_sdt_bp": sdt_bp, "voice2pose_sdt_vae": sdt_vae,
-           "pose2pose": pose2pose}
+           "voice2pose_s2g": s2g, "pose2pose": pose2pose}
 
 
 def preset_for_config_file(path: str) -> Config:
     """The preset named like ``configs/<name>.yaml`` (the file is not read)."""
     name = os.path.splitext(os.path.basename(path))[0]
-    if name == "voice2pose_s2g":
-        raise NotImplementedError("configs/voice2pose_s2g.yaml (s2g-GAN) is not ported "
-                                  "yet: ROADMAP.md queue A, item 11")
     if name not in PRESETS:
         raise ValueError(f"no preset for config file {path!r}; the port has "
                          f"{sorted(f'configs/{n}.yaml' for n in PRESETS)}")

@@ -8,6 +8,10 @@ clip's audio cropped or zero-padded to whole video frames, its first
 NUM_FRAMES poses taken to 121 keypoints, re-rooted per part and z-scored with
 the speaker's parted statistics, its row index in the split (``clip_index``,
 for the train split the row of the clip-code bank) and those statistics.
+With DATASET.HIERARCHICAL_POSE False (s2g) the poses stay global, are
+z-scored with the speaker's global statistics, which ``speaker_stat`` then
+holds, and the item carries them again as ``speaker_stat_global`` (the FGD
+encoder's re-normalization reads that key, as in JAX).
 
 ``EpochBatches`` is the JAX loader's train schedule, a ``RandomState(seed +
 epoch)`` shuffle of the row indices in full batches only, so a port run and a
@@ -47,11 +51,6 @@ class GestureDataset:
             raise ValueError("DATASET.SPEAKER is not set")
         if split not in SPLIT_ROWS:
             raise ValueError(f"unknown split {split!r}: 'train' or 'val'")
-        if not cfg.DATASET.HIERARCHICAL_POSE:
-            raise NotImplementedError(
-                "DATASET.HIERARCHICAL_POSE False (global poses, whose FGD path "
-                "re-normalizes parted -> global) is not ported yet: ROADMAP.md "
-                "queue A, item 11")
         self.cfg = cfg.DATASET
         self.split = split
         self._cache: Dict[int, Dict[str, object]] = {}
@@ -99,16 +98,21 @@ class GestureDataset:
 
     def _load_item(self, idx: int) -> Dict[str, object]:
         clip = self.clips[idx]
-        stat = get_speaker_stat(clip["speaker"], 121, parted=True)
+        parted = self.cfg.HIERARCHICAL_POSE
+        stat = get_speaker_stat(clip["speaker"], 121, parted=parted)
         with np.load(os.path.join(clip["_dir"], clip["pose_fn"])) as arr:
             audio = crop_pad_audio(np.asarray(arr["audio"], np.float32), self.audio_length)
             pose = np.asarray(arr["pose"][: self.cfg.NUM_FRAMES], np.float32)
-        rel = pose_ops.global_to_parted(
-            pose_ops.absolute_to_relative(pose_ops.remove_unused_kp(pose)))
+        rel = pose_ops.absolute_to_relative(pose_ops.remove_unused_kp(pose))
+        if parted:
+            rel = pose_ops.global_to_parted(rel)
         poses = pose_ops.normalize_poses(rel[:, :2, :], stat["mean"], stat["std"],
                                          self.cfg.NUM_LANDMARKS).astype(np.float32)
-        return {"audio": audio.astype(np.float32), "poses": poses,
+        item = {"audio": audio.astype(np.float32), "poses": poses,
                 "clip_index": np.int64(idx), "speaker_stat": stat}
+        if not parted:
+            item["speaker_stat_global"] = get_speaker_stat(clip["speaker"], 121, parted=False)
+        return item
 
 
 def _take(tree, idx):

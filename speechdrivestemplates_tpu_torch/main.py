@@ -6,9 +6,10 @@
 
 ``--config_file`` picks the preset of that name (``config.preset_for_config_file``:
 ``configs/pose2pose.yaml``, ``configs/voice2pose_sdt_bp.yaml``,
-``configs/voice2pose_sdt_vae.yaml``; the file itself is not read), SDT-BP
-without one; the ``KEY VALUE`` overrides of ``config.apply_overrides`` follow,
-e.g. ``DATASET.ROOT_DIR datasets/speakers TRAIN.NUM_EPOCHS 100``. Videos are
+``configs/voice2pose_sdt_vae.yaml``, ``configs/voice2pose_s2g.yaml``; the file
+itself is not read), SDT-BP without one; the ``KEY VALUE`` overrides of
+``config.apply_overrides`` follow, e.g. ``DATASET.ROOT_DIR datasets/speakers
+TRAIN.NUM_EPOCHS 100``. Videos are
 not ported yet, so ``TRAIN.SAVE_VIDEO False`` is required, and ``TEST.SAVE_VIDEO
 False`` where the run evaluates (``--test_only``, or ``TRAIN.VALIDATE`` True).
 ``--test_only`` evaluates ``--checkpoint`` on the val split instead of training
@@ -19,8 +20,9 @@ run directory or ``checkpoints/``), in that run's directory; ``--pretrain_from``
 optimizers; TRAIN.AUTO_RESUME True continues this tag's newest checkpoint.
 Runs on the card unless ``--device cpu`` is given, and raises without one.
 Prints one JSON line at the end: a training run's steps, last losses, last
-checkpoint (which the serving command line loads) and the checkpoint it
-resumed from, or a test run's metrics. A training run ended by SIGTERM
+checkpoint (which the serving command line loads, given the same
+``--config_file``; a code-less s2g checkpoint draws no code there) and the
+checkpoint it resumed from, or a test run's metrics. A training run ended by SIGTERM
 (TRAIN.CHECKPOINT_ON_PREEMPT) exits 143 after its checkpoint.
 """
 

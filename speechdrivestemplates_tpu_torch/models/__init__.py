@@ -9,14 +9,17 @@ import torch
 
 from ..utils.device import resolve_device
 from .autoencoder import Autoencoder, PoseSeqDecoder, PoseSeqEncoder
+from .discriminator import PoseSequenceDiscriminator
 from .generator import AudioEncoder, SequenceGeneratorCNN, UNet1D
 
 MODELS = {"SequenceGeneratorCNN": SequenceGeneratorCNN,
+          "PoseSequenceDiscriminator": PoseSequenceDiscriminator,
           "PoseSeqEncoder": PoseSeqEncoder,
           "Autoencoder": Autoencoder}
 
 __all__ = ["AudioEncoder", "Autoencoder", "PoseSeqDecoder", "PoseSeqEncoder",
-           "SequenceGeneratorCNN", "UNet1D", "build_model", "compute_dtype"]
+           "PoseSequenceDiscriminator", "SequenceGeneratorCNN", "UNet1D", "build_model",
+           "compute_dtype"]
 
 
 def compute_dtype(cfg) -> torch.dtype:

@@ -21,7 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import interpolate_linear_time
-from .blocks import ConvNormRelu, lecun_conv1x1
+from .blocks import ConvNormRelu, lecun_conv1d
 
 
 class PoseSeqEncoder(nn.Module):
@@ -82,7 +82,7 @@ class PoseSeqDecoder(nn.Module):
 
         self.d5, self.d4, self.d3, self.d2, self.d1 = (cnr(c) for c in (code_dim,) + (256,) * 4)
         self.blocks = nn.Sequential(*[cnr(256) for _ in range(4)],
-                                    lecun_conv1x1(256, 2 * num_landmarks, generator))
+                                    lecun_conv1d(256, 2 * num_landmarks, generator))
         self.dtype = dtype
 
     def forward(self, code: torch.Tensor) -> torch.Tensor:

@@ -55,15 +55,17 @@ def conv_norm_relu_2d(x: torch.Tensor, weight: torch.Tensor, stride, padding,
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over a (B, C, T) tensor, reducing over (B, T).
+    """BatchNorm over a (B, C, ...) tensor, reducing over every axis but C:
+    (B, T) of a 1D tensor, (B, H, W) of a 2D one.
 
     Train mode normalizes with the biased batch variance and moves the running
-    statistics by ``BN_MOMENTUM``, the variance by its unbiased n/(n-1) form;
-    eval mode normalizes with the running statistics. Parameter and buffer
-    names are torch's (``weight``, ``bias``, ``running_mean``, ``running_var``,
-    ``num_batches_tracked``), so reference checkpoints load with
-    ``strict=True``. Returns the normalized tensor in the statistics dtype
-    (fp32 for fp32 and bf16 inputs); the caller casts."""
+    statistics by ``BN_MOMENTUM``, the variance by its unbiased n/(n-1) form
+    (n the number of values per channel); eval mode normalizes with the
+    running statistics. Parameter and buffer names are torch's (``weight``,
+    ``bias``, ``running_mean``, ``running_var``, ``num_batches_tracked``), so
+    reference checkpoints load with ``strict=True``. Returns the normalized
+    tensor in the statistics dtype (fp32 for fp32 and bf16 inputs); the
+    caller casts."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -76,8 +78,9 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(_stats_dtype(x))
         if self.training:
-            var, mean = torch.var_mean(xf, dim=(0, 2), correction=0)
-            n = xf.shape[0] * xf.shape[2]
+            dims = (0, *range(2, x.ndim))
+            var, mean = torch.var_mean(xf, dim=dims, correction=0)
+            n = xf.numel() // xf.shape[1]
             with torch.no_grad():
                 m = 1.0 - BN_MOMENTUM
                 self.running_mean.copy_(m * self.running_mean + BN_MOMENTUM * mean)
@@ -86,8 +89,9 @@ class BatchNorm(nn.Module):
                 self.num_batches_tracked += 1
         else:
             mean, var = self.running_mean, self.running_var
-        y = (xf - mean[:, None]) * torch.rsqrt(var[:, None] + NORM_EPS)
-        return y * self.weight[:, None] + self.bias[:, None]
+        shape = (-1,) + (1,) * (x.ndim - 2)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + NORM_EPS)
+        return y * self.weight.view(shape) + self.bias.view(shape)
 
 
 def _kaiming_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -96,11 +100,13 @@ def _kaiming_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
         w.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
 
 
-def lecun_conv1x1(c_in: int, c_out: int, generator: torch.Generator) -> nn.Conv1d:
-    """A 1x1 Conv1d with bias, initialized as flax ``nn.Conv`` is: LeCun normal
-    truncated at 2 sigma, zero bias (the output layer of the pose decoders)."""
-    out = nn.Conv1d(c_in, c_out, 1, bias=True)
-    std = math.sqrt(1.0 / c_in) / 0.87962566103423978
+def lecun_conv1d(c_in: int, c_out: int, generator: torch.Generator,
+                 kernel_size: int = 1, padding: int = 0) -> nn.Conv1d:
+    """A Conv1d with bias, initialized as flax ``nn.Conv`` is: LeCun normal
+    (fan_in = c_in x kernel_size) truncated at 2 sigma, zero bias (the output
+    layers of the pose decoders and of the discriminator)."""
+    out = nn.Conv1d(c_in, c_out, kernel_size, padding=padding, bias=True)
+    std = math.sqrt(1.0 / (c_in * kernel_size)) / 0.87962566103423978
     with torch.no_grad():
         nn.init.trunc_normal_(out.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
         out.bias.zero_()
@@ -112,7 +118,7 @@ class ConvNormRelu(nn.Module):
 
     ``conv_type`` is '1d' or '2d'; ``kernel_size``/``stride``/``padding``
     override the defaults (ints or per-axis tuples, torch semantics). ``norm``
-    is 'IN' (1D or 2D) or 'BN' (1D, submodule ``norm``).
+    is 'IN' or 'BN' (submodule ``norm``), 1D or 2D.
     """
 
     def __init__(self, conv_type: str, in_channels: int, out_channels: int,
@@ -123,9 +129,6 @@ class ConvNormRelu(nn.Module):
         super().__init__()
         if norm not in ("IN", "BN"):
             raise ValueError(f"norm {norm!r}: 'IN' or 'BN'")
-        if norm == "BN" and conv_type != "1d":
-            raise NotImplementedError("BN on a 2d conv (s2g's generator) is not ported yet: "
-                                      "ROADMAP.md queue A, item 11")
         if kernel_size is None:
             kernel_size, stride, padding = (4, 2, 1) if downsample else (3, 1, 1)
         conv = {"1d": nn.Conv1d, "2d": nn.Conv2d}[conv_type]
@@ -139,10 +142,11 @@ class ConvNormRelu(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.conv
-        if self.conv_type == "2d":
+        if self.conv_type == "2d" and self.norm is None:
             return conv_norm_relu_2d(x, c.weight, c.stride, c.padding, self.slope,
                                      self.dtype)
-        y = F.conv1d(x.to(self.dtype), c.weight.to(self.dtype), stride=c.stride,
-                     padding=c.padding)
+        conv = F.conv2d if self.conv_type == "2d" else F.conv1d
+        y = conv(x.to(self.dtype), c.weight.to(self.dtype), stride=c.stride,
+                 padding=c.padding)
         y = channel_norm_1d(y) if self.norm is None else self.norm(y)
         return F.leaky_relu(y, self.slope).to(self.dtype)

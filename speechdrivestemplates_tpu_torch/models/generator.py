@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from ..ops import stem as stem_ops
 from ..ops.resize import interpolate_bilinear, interpolate_linear_time
-from .blocks import ConvNormRelu, lecun_conv1x1
+from .blocks import ConvNormRelu, lecun_conv1d
 
 # (out channels, extra ConvNormRelu arguments) of the audio encoder's 8 layers;
 # kernel tuples are (H = mel, W = time)
@@ -31,11 +31,13 @@ ENCODER_SPECS = [(64, {}), (64, dict(downsample=True)),
 class AudioEncoder(nn.Module):
     """2D CNN over the mel spectrogram, resampled to the video frame rate.
 
-    Layers 0-2 run as one stem (``ops/stem.py``): the fused CUDA kernels in
-    eval mode on the card; the plain layers (cuDNN convs under autograd) in
-    train mode, on the CPU, or when ``plain`` is set. The kernels have no
-    backward, as the JAX package's Pallas stem has none: it runs only at
-    inference there too.
+    An IN encoder runs layers 0-2 as one stem (``ops/stem.py``): the fused
+    CUDA kernels in eval mode on the card; the plain layers (cuDNN convs under
+    autograd) in train mode, on the CPU, or when ``plain`` is set. The kernels
+    have no backward, as the JAX package's Pallas stem has none: it runs only
+    at inference there too. A BN encoder (s2g) runs its eight layers in order,
+    in every mode and on every device: the kernels compute InstanceNorm, and
+    the JAX package gives its Pallas stem IN encoders only.
     """
 
     def __init__(self, norm: str = "IN", leaky: bool = True,
@@ -50,6 +52,7 @@ class AudioEncoder(nn.Module):
         self.specgram_encoder_2d = nn.Sequential(
             *[nn.Sequential(layers[i], layers[i + 1]) for i in range(0, 8, 2)])
         self.slope = layers[0].slope
+        self.norm = norm
         self.dtype = dtype
 
     def layers(self) -> list[ConvNormRelu]:
@@ -59,12 +62,15 @@ class AudioEncoder(nn.Module):
                 plain: bool = False) -> torch.Tensor:
         """mel (B, 80, T_mel) -> (B, 256, num_frames)."""
         layers = self.layers()
-        stem = (stem_ops.stem_plain if plain or self.training
-                else stem_ops.audio_encoder_stem)
-        x = stem(mel, *(layers[i].conv.weight for i in range(3)),
-                 slope=self.slope, dtype=self.dtype)  # (B, 40, W2, 128)
-        x = x.permute(0, 3, 1, 2)
-        for layer in layers[3:]:
+        if self.norm == "BN":
+            x = mel[:, None]
+        else:
+            stem = (stem_ops.stem_plain if plain or self.training
+                    else stem_ops.audio_encoder_stem)
+            x = stem(mel, *(layers[i].conv.weight for i in range(3)),
+                     slope=self.slope, dtype=self.dtype)  # (B, 40, W2, 128)
+            x, layers = x.permute(0, 3, 1, 2), layers[3:]
+        for layer in layers:
             x = layer(x)
         # (B, 256, H', W') -> bilinear to (1, num_frames), no antialiasing
         return interpolate_bilinear(x, (1, num_frames))[:, :, 0, :]
@@ -119,7 +125,7 @@ class SequenceGeneratorCNN(nn.Module):
         self.dtype = dtype
         self.audio_encoder = AudioEncoder(norm, leaky, dtype, generator)
         self.unet = UNet1D(256 + (code_dim or 0), norm, leaky, dtype, generator)
-        out = lecun_conv1x1(256, 2 * num_landmarks, generator)
+        out = lecun_conv1d(256, 2 * num_landmarks, generator)
         self.decoder = nn.Sequential(
             *[ConvNormRelu("1d", 256, 256, norm=norm, leaky=leaky, dtype=dtype,
                            generator=generator) for _ in range(4)], out)
@@ -134,10 +140,10 @@ class SequenceGeneratorCNN(nn.Module):
     def forward(self, mel: torch.Tensor, num_frames: int,
                 code: Optional[torch.Tensor] = None,
                 plain: bool = False) -> torch.Tensor:
-        """mel (B, 80, T_mel); code (B, code_dim) or (B, code_dim, T) ->
-        normalized poses (B, num_frames, 2, K) in the compute dtype.
-        ``plain`` runs the stem's plain version even on the card in eval mode
-        (a reference); train mode always does."""
+        """mel (B, 80, T_mel); code (B, code_dim) or (B, code_dim, T), None
+        for a code-less generator -> normalized poses (B, num_frames, 2, K) in
+        the compute dtype. ``plain`` runs an IN stem's plain version even on
+        the card in eval mode (a reference); train mode always does."""
         x = self.audio_encoder(mel, num_frames, plain)  # (B, 256, T)
         if self.code_dim is not None:
             if code is None:

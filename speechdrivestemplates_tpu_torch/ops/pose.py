@@ -104,6 +104,16 @@ def parted_to_global(poses: torch.Tensor) -> torch.Tensor:
     return xy
 
 
+def transform_normalized_parted2global(poses, parted_mean, parted_std, global_mean,
+                                       global_std, num_landmarks: int = 121):
+    """Parted-normalized (B, T, 2, K) poses -> global-normalized ones, the FGD
+    pose encoder's input when training on global poses (the JAX function of
+    this name); each statistic (B, 2K)."""
+    poses = parted_to_global(denormalize_poses(poses, parted_mean, parted_std, num_landmarks))
+    shape = (global_mean.shape[0], 1, 2, num_landmarks)
+    return (poses - global_mean.reshape(shape)) / global_std.reshape(shape)
+
+
 def get_final_results(poses, mean, std, scale_factor, hierarchical: bool,
                       num_landmarks: int = 121):
     """Denormalize -> (optionally) re-root to global -> scale to pixels.

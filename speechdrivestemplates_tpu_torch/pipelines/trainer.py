@@ -78,7 +78,7 @@ def check_trainer_options(cfg, evaluates: bool) -> None:
     """Raise for what the port lacks: NotImplementedError for the options not
     ported yet (TEST.SAVE_VIDEO only where the run evaluates), ValueError for
     an unknown pipeline or option value."""
-    p = pipeline(cfg)
+    pipeline(cfg)
     todo = {"TRAIN.SAVE_VIDEO": (cfg.TRAIN.SAVE_VIDEO, "pose videos", 13),
             "TEST.SAVE_VIDEO": (evaluates and cfg.TEST.SAVE_VIDEO, "pose videos", 13)}
     for key, (on, what, item) in todo.items():
@@ -90,8 +90,6 @@ def check_trainer_options(cfg, evaluates: bool) -> None:
                          f"{DEVICE_CACHE_MODES}")
     if cfg.TRAIN.STEPS_PER_DISPATCH < 1:
         raise ValueError(f"TRAIN.STEPS_PER_DISPATCH {cfg.TRAIN.STEPS_PER_DISPATCH}: >= 1")
-    if p is PIPELINES["Voice2Pose"]:
-        voice2pose.check_supported(cfg)
 
 
 def train_loader(cfg, device=None):
@@ -150,13 +148,14 @@ def device_cache_reason(cfg, loader, device_keys) -> str:
 
 
 def stage_device_cache(cfg, loader, device, device_keys) -> Tuple[Optional[dict], str]:
-    """The train split's ``device_keys`` as tensors on ``device``, staged once
-    for the run, and the line to log; ``(None, why)`` where the cache cannot
-    engage (DATASET.DEVICE_CACHE 'auto'). 'on' raises ValueError instead."""
+    """The train split's ``device_keys`` (those its items have) as tensors on
+    ``device``, staged once for the run, and the line to log; ``(None, why)``
+    where the cache cannot engage (DATASET.DEVICE_CACHE 'auto'). 'on' raises
+    ValueError instead."""
     reason = device_cache_reason(cfg, loader, device_keys)
     if not reason:
         soa = loader.dataset.materialize()
-        host = {k: soa[k] for k in device_keys}
+        host = {k: soa[k] for k in device_keys if k in soa}
         nbytes = sum(a.nbytes for v in host.values()
                      for a in (v.values() if isinstance(v, dict) else [v]))
         limit = cfg.DATASET.DEVICE_CACHE_MAX_MB * 1e6

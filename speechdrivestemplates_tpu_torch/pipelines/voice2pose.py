@@ -1,31 +1,44 @@
-"""The Voice2Pose train and eval steps: mel -> generator -> L1 + clip-code KL.
+"""The Voice2Pose train and eval steps: mel -> generator -> L1 + clip-code KL
+[+ LSGAN].
 
-Counterpart of the JAX package's ``Voice2Pose`` (``pipelines/voice2pose.py``)
-for the SDT configurations: a ``SequenceGeneratorCNN`` conditioned on a
-template code from a bank of per-clip codes, and the frozen ``PoseSeqEncoder``
-whose FGD features are taken in eval, and whose train-mode BatchNorm
-statistics drift with every train step. The bank is learned (SDT-BP, zero
-init, (N_train, 32), or (N_train, 32, T) per frame with CLIP_CODE.
-FRAME_VARIANT) or a Pose2Pose checkpoint's ``clip_code_mu``, frozen, with no
-optimizer (SDT-VAE, CLIP_CODE.EXTERNAL_CODE). The frozen encoder starts from a
-seeded init, or from a Pose2Pose checkpoint's encoder
+Counterpart of the JAX package's ``Voice2Pose`` (``pipelines/voice2pose.py``):
+a ``SequenceGeneratorCNN``, the frozen ``PoseSeqEncoder`` whose FGD features
+are taken in eval, and whose train-mode BatchNorm statistics drift with every
+train step, and for s2g-GAN the ``PoseSequenceDiscriminator`` with its own
+Adam. The SDT configurations condition the generator on a template code from
+a bank of per-clip codes: learned (SDT-BP, zero init, (N_train, 32), or
+(N_train, 32, T) per frame with CLIP_CODE.FRAME_VARIANT) or a Pose2Pose
+checkpoint's ``clip_code_mu``, frozen, with no optimizer (SDT-VAE,
+CLIP_CODE.EXTERNAL_CODE). s2g's generator (CLIP_CODE.DIMENSION None) takes no
+code and has no bank; it is BN-normalized and trains on global poses
+(DATASET.HIERARCHICAL_POSE False). The frozen encoder starts from a seeded
+init, or from a Pose2Pose checkpoint's encoder
 (VOICE2POSE.POSE_ENCODER.AE_CHECKPOINT).
 
 One train step, in order (``train_step``):
   1. the mel spectrogram of the batch's audio (the CUDA kernel on the card;
      audio takes no gradient);
-  2. the generator in train mode (its stem as plain cuDNN convs under
-     autograd), with codes ``clips_code[clip_index]``;
-  3. L1 x LAMBDA_REG, plus the KL of the codes' batch statistics to N(0, 1)
+  2. the generator in train mode (an IN stem as plain cuDNN convs under
+     autograd), with codes ``clips_code[clip_index]`` where it takes them;
+  3. with a discriminator, three train-mode D forwards in the reference's
+     order, each moving D's BN running statistics: the real poses, the
+     prediction (for the G loss; D's parameters take no gradient from it),
+     the detached prediction (for the D loss). D's input is ``disc_input``:
+     POSE_DISCRIMINATOR.WHITE_LIST's keypoints, then frame differences with
+     MOTION;
+  4. L1 x LAMBDA_REG, plus the KL of the codes' batch statistics to N(0, 1)
      x LAMBDA_CLIP_KL (over the (B*T, dim) codes of a frame-variant bank),
      skipped while any code variance is exactly 0 (the first steps after the
-     bank's zero init);
-  4. backward, then torch Adam steps: the generator with TRAIN.WD as L2 added
-     to the gradient, a learned bank at LR x LR_SCALING with no decay (its
-     gradient is dense, so rows not in the batch move by their moments);
-  5. the pose encoder in train mode under ``no_grad`` on the prediction, then
-     on the ground truth: two BN statistics updates, no parameter update;
-  6. L2 and lip-sync metrics on pixel-space poses.
+     bank's zero init), plus MSE(D(fake), 1) x LAMBDA_GAN; the D loss
+     (MSE(D(real), 1) + MSE(D(fake.detach()), 0)) x LAMBDA_GAN;
+  5. one backward of their sum, then torch Adam steps, all from the pre-step
+     weights: the generator with TRAIN.WD as L2 added to the gradient, a
+     learned bank at LR x LR_SCALING with no decay (its gradient is dense, so
+     rows not in the batch move by their moments), the discriminator at LR;
+  6. the pose encoder in train mode under ``no_grad`` on the prediction, then
+     on the ground truth (re-normalized by ``p2g_renorm`` on global poses):
+     two BN statistics updates, no parameter update;
+  7. L2 and lip-sync metrics on pixel-space poses.
 The learning rates follow MultiStepLR at epochs [N-10, N-2], gamma 0.1, when
 TRAIN.LR_SCHEDULER is set (``make_scheduler``; ``end_epoch`` steps it).
 A state built ``capturable`` (the trainer's choice for K train steps in one
@@ -33,15 +46,17 @@ CUDA graph, TRAIN.STEPS_PER_DISPATCH > 1) takes Adams with ``capturable=True``
 and each learning rate in a device tensor, which the schedulers move in place.
 
 One eval step (``eval_step``, the JAX ``_build_eval_step``): the mel, the
-generator in eval mode (on the card: the mel kernel, then the conv1 and stem
-kernels, as serving runs them) on the code ``condition_code`` picks, the
-losses, the pose encoder in eval mode on the prediction and the ground truth
-(mu and logvar: the FGD features), the metrics.
+generator in eval mode (on the card an IN generator runs the mel kernel, then
+the conv1 and stem kernels, as serving runs them) on the code
+``condition_code`` picks, the losses (the GAN ones with D in eval mode), the
+pose encoder in eval mode on the prediction and the ground truth (mu and
+logvar: the FGD features), the metrics.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -50,31 +65,18 @@ import torch.nn as nn
 
 from ..models import build_model
 from ..ops.mel import _mel_filterbank_np, mel_spectrogram, mel_spectrogram_plain
-from ..ops.pose import get_final_results, multiply_batch, step_metrics
+from ..ops.pose import (get_final_results, multiply_batch, step_metrics,
+                        transform_normalized_parted2global)
 from ..utils.device import resolve_device
 from ..utils.weights import (check_bank_rows, external_code_bank, pose_encoder_from_ae_pth,
                              read_pth)
 from .checkpoint import atomic_save
 
 ADAM = dict(betas=(0.9, 0.999), eps=1e-8)
-# the batch keys a train step reads: what the trainer stages on the card
-DEVICE_KEYS = ("audio", "poses", "clip_index", "speaker_stat")
+# the batch keys the steps read, what the trainer stages on the card;
+# speaker_stat_global exists on global poses only (DATASET.HIERARCHICAL_POSE False)
+DEVICE_KEYS = ("audio", "poses", "clip_index", "speaker_stat", "speaker_stat_global")
 _GROUP_FLAGS = ("capturable", "foreach", "fused", "differentiable")
-
-
-def check_supported(cfg) -> None:
-    """Raise NotImplementedError for the Voice2Pose options this port lacks."""
-    gcfg = cfg.VOICE2POSE.GENERATOR
-    todo = {
-        "VOICE2POSE.POSE_DISCRIMINATOR.NAME (the s2g-GAN discriminator)":
-            (cfg.VOICE2POSE.POSE_DISCRIMINATOR.NAME is not None, 11),
-        "VOICE2POSE.GENERATOR.CLIP_CODE.DIMENSION None (a code-less generator, s2g)":
-            (gcfg.CLIP_CODE.DIMENSION is None, 11),
-    }
-    for what, (on, item) in todo.items():
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue A, "
-                                      f"item {item}")
 
 
 def make_scheduler(optimizer: torch.optim.Optimizer, cfg):
@@ -174,27 +176,32 @@ def eval_mode(*modules):
 class Voice2PoseTrainState:
     """The trained modules, their optimizers and schedulers, the template bank
     and the step count (the JAX package's ``Voice2Pose.state``). Weights come
-    from a ``torch.Generator`` seeded with SYS.SEED, the eval codes' draws from
-    another on the device. ``num_train`` None (a test run) leaves the bank's
-    rows to the checkpoint. ``capturable`` (default: on the card with
-    TRAIN.STEPS_PER_DISPATCH > 1) builds the Adams for CUDA-graph replay.
-    Weights and banks load into the existing tensors and a learning-rate
-    tensor is filled in place, as a captured graph holds them by address;
-    the trainer loads the optimizers' state before its first capture."""
+    from a ``torch.Generator`` seeded with SYS.SEED (the generator's, then the
+    discriminator's, then the pose encoder's), the eval codes' draws from
+    another on the device. ``clips_code`` is None for a code-less generator
+    (s2g), ``discriminator`` None without POSE_DISCRIMINATOR.NAME.
+    ``num_train`` None (a test run) leaves the bank's rows to the checkpoint.
+    ``capturable`` (default: on the card with TRAIN.STEPS_PER_DISPATCH > 1)
+    builds the Adams for CUDA-graph replay. Weights and banks load into the
+    existing tensors and a learning-rate tensor is filled in place, as a
+    captured graph holds them by address; the trainer loads the optimizers'
+    state before its first capture."""
 
     def __init__(self, cfg, num_train: Optional[int], device="cuda",
                  capturable: Optional[bool] = None):
-        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.num_train = num_train
         gen = torch.Generator().manual_seed(cfg.SYS.SEED)
-        gcfg = cfg.VOICE2POSE.GENERATOR
-        cc = gcfg.CLIP_CODE
-        self.generator = build_model(gcfg.NAME, cfg, self.device, generator=gen).train()
-        self.external_code = cc.EXTERNAL_CODE
-        if self.external_code:
-            path = cc.EXTERNAL_CODE_PTH or cfg.VOICE2POSE.POSE_ENCODER.AE_CHECKPOINT
+        v2p = cfg.VOICE2POSE
+        cc = v2p.GENERATOR.CLIP_CODE
+        self.generator = build_model(v2p.GENERATOR.NAME, cfg, self.device,
+                                     generator=gen).train()
+        self.external_code = cc.DIMENSION is not None and cc.EXTERNAL_CODE
+        if cc.DIMENSION is None:
+            self.clips_code = None
+        elif self.external_code:
+            path = cc.EXTERNAL_CODE_PTH or v2p.POSE_ENCODER.AE_CHECKPOINT
             if path is None:
                 raise ValueError("CLIP_CODE.EXTERNAL_CODE needs a Pose2Pose checkpoint: "
                                  "CLIP_CODE.EXTERNAL_CODE_PTH or POSE_ENCODER.AE_CHECKPOINT")
@@ -203,12 +210,16 @@ class Voice2PoseTrainState:
             shape = (num_train or 1, cc.DIMENSION) + (
                 (cfg.DATASET.NUM_FRAMES,) if cc.FRAME_VARIANT else ())
             self.clips_code = nn.Parameter(torch.zeros(shape, device=self.device))
+        self.discriminator = None
+        if v2p.POSE_DISCRIMINATOR.NAME is not None:
+            self.discriminator = build_model(v2p.POSE_DISCRIMINATOR.NAME, cfg, self.device,
+                                             generator=gen).train()
         self.pose_encoder = None
-        if cfg.VOICE2POSE.POSE_ENCODER.NAME is not None:
-            self.pose_encoder = build_model(cfg.VOICE2POSE.POSE_ENCODER.NAME, cfg,
-                                            self.device, generator=gen)
+        if v2p.POSE_ENCODER.NAME is not None:
+            self.pose_encoder = build_model(v2p.POSE_ENCODER.NAME, cfg, self.device,
+                                            generator=gen)
             self.pose_encoder.train().requires_grad_(False)
-            ae_ckpt = cfg.VOICE2POSE.POSE_ENCODER.AE_CHECKPOINT
+            ae_ckpt = v2p.POSE_ENCODER.AE_CHECKPOINT
             if ae_ckpt is not None:
                 self.pose_encoder.load_state_dict(
                     pose_encoder_from_ae_pth(ae_ckpt, self.pose_encoder.state_dict()),
@@ -218,8 +229,10 @@ class Voice2PoseTrainState:
         self.capturable = capturable
         self.opt_g = make_adam(self.generator.parameters(), cfg.TRAIN.LR, self.device,
                                capturable, cfg.TRAIN.WD)
-        self.opt_code = None if self.external_code else make_adam(
+        self.opt_code = None if self.clips_code is None or self.external_code else make_adam(
             [self.clips_code], cfg.TRAIN.LR * cc.LR_SCALING, self.device, capturable)
+        self.opt_d = None if self.discriminator is None else make_adam(
+            self.discriminator.parameters(), cfg.TRAIN.LR, self.device, capturable)
         self.schedulers = [s for s in (make_scheduler(o, cfg) for o in self.optimizers()) if s]
         self.rng = torch.Generator(device=self.device).manual_seed(cfg.SYS.SEED)
         self.step = 0
@@ -239,42 +252,56 @@ class Voice2PoseTrainState:
                              f"needs {tuple(self.clips_code.shape)}")
 
     def load(self, parts: Dict[str, object]) -> None:
-        """Load ``{"generator", "clips_code", "pose_encoder"}`` (the form of
-        ``utils.weights.state_from_jax``), strictly."""
+        """Load ``{"generator", "clips_code", "pose_encoder"[, "discriminator"]}``
+        (the form of ``utils.weights.state_from_jax``), strictly: a bank where
+        the generator takes codes and None where it does not, and the
+        discriminator's weights where this configuration has one."""
         self.generator.load_state_dict(parts["generator"], strict=True)
-        self._set_bank(parts["clips_code"])
+        if (parts["clips_code"] is None) != (self.clips_code is None):
+            raise ValueError("the clip-code bank does not fit the generator: "
+                             "CLIP_CODE.DIMENSION is "
+                             f"{self.cfg.VOICE2POSE.GENERATOR.CLIP_CODE.DIMENSION}")
+        if self.clips_code is not None:
+            self._set_bank(parts["clips_code"])
+        if self.discriminator is not None:
+            self.discriminator.load_state_dict(parts["discriminator"], strict=True)
         if self.pose_encoder is not None:
             self.pose_encoder.load_state_dict(parts["pose_encoder"], strict=True)
 
     def load_pth(self, path: str) -> None:
         """Weights from a reference-layout Voice2Pose checkpoint, as the JAX
-        package's ``load_torch_pth`` takes them: the generator, the bank, and
-        the pose encoder where the checkpoint has one. Its ``pose_encoder.*``,
-        running statistics drifted by training included, win over an
-        AE_CHECKPOINT's encoder: they are what the reference's test run
-        evaluates FGD with."""
+        package's ``load_torch_pth`` takes them: the generator; the bank and
+        the discriminator (``netD_pose.*``) where this configuration has them;
+        the pose encoder where the checkpoint has one; each strictly. Its
+        ``pose_encoder.*``, running statistics drifted by training included,
+        win over an AE_CHECKPOINT's encoder: they are what the reference's test
+        run evaluates FGD with."""
         sd = read_pth(path)
-        self.generator.load_state_dict(
-            {k[len("netG."):]: v for k, v in sd.items() if k.startswith("netG.")},
-            strict=True)
-        if "clips_code" in sd:
+
+        def under(prefix):
+            return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+        self.generator.load_state_dict(under("netG."), strict=True)
+        if "clips_code" in sd and self.clips_code is not None:
             self._set_bank(sd["clips_code"])
-        pe = {k[len("pose_encoder."):]: v for k, v in sd.items()
-              if k.startswith("pose_encoder.")}
-        if self.pose_encoder is not None and pe:
-            self.pose_encoder.load_state_dict(pe, strict=True)
+        for module, part in ((self.discriminator, under("netD_pose.")),
+                             (self.pose_encoder, under("pose_encoder."))):
+            if module is not None and part:
+                module.load_state_dict(part, strict=True)
 
     def optimizers(self) -> list:
-        return [o for o in (self.opt_g, self.opt_code) if o is not None]
+        """The generator's, the bank's and the discriminator's Adams, those the
+        configuration has, in that order: D last, so that the resume files of
+        the code-bank configurations keep their order."""
+        return [o for o in (self.opt_g, self.opt_code, self.opt_d) if o is not None]
 
     def end_epoch(self) -> None:
         step_schedulers(self.schedulers, self.optimizers())
 
     def learning_rates(self) -> Dict[str, float]:
-        lrs = {"G": float(self.opt_g.param_groups[0]["lr"])}
-        if self.opt_code is not None:
-            lrs["ClipCode"] = float(self.opt_code.param_groups[0]["lr"])
-        return lrs
+        """The JAX ``current_lrs`` names: G, ClipCode, D_pose."""
+        lrs = {"G": self.opt_g, "ClipCode": self.opt_code, "D_pose": self.opt_d}
+        return {k: float(o.param_groups[0]["lr"]) for k, o in lrs.items() if o is not None}
 
     def train_state_dict(self) -> Dict[str, object]:
         return train_state_dict(self)
@@ -283,14 +310,18 @@ class Voice2PoseTrainState:
         load_train_state(self, sd)
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
-        """The reference ``Voice2PoseModel`` keys (without ``module.``): the mel
-        buffers, ``netG.*``, ``clips_code`` and ``pose_encoder.*``."""
+        """The reference ``Voice2PoseModel`` keys (without ``module.``), as the
+        JAX ``export_voice2pose`` writes them: the mel buffers, ``netG.*``,
+        ``clips_code`` where there is a bank, ``netD_pose.*`` where there is a
+        discriminator, ``pose_encoder.*``."""
         sd = mel_buffers()
         sd.update({f"netG.{k}": v for k, v in self.generator.state_dict().items()})
-        sd["clips_code"] = self.clips_code.detach()
-        if self.pose_encoder is not None:
-            sd.update({f"pose_encoder.{k}": v
-                       for k, v in self.pose_encoder.state_dict().items()})
+        if self.clips_code is not None:
+            sd["clips_code"] = self.clips_code.detach()
+        for prefix, module in (("netD_pose.", self.discriminator),
+                               ("pose_encoder.", self.pose_encoder)):
+            if module is not None:
+                sd.update({prefix + k: v for k, v in module.state_dict().items()})
         return sd
 
     def save_checkpoint(self, path: str, epoch: int, step: int) -> None:
@@ -321,21 +352,104 @@ def load_train_state(state, sd: Dict[str, object]) -> None:
     state.rng.set_state(sd["rng"])
 
 
-def generator_losses(pred: torch.Tensor, gt: torch.Tensor, code: torch.Tensor,
-                     cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """``(G_loss, {"G_reg_loss", "G_clipcode_kl_loss", "G_loss"})`` for a
-    prediction, its target and the batch's (B, code_dim) codes, or (B,
-    code_dim, T) per-frame codes, whose KL is over the (B*T, code_dim) rows."""
+def _mse(x: torch.Tensor, target: float) -> torch.Tensor:
+    return ((x - target) ** 2).mean()
+
+
+def generator_losses(pred: torch.Tensor, gt: torch.Tensor, code: Optional[torch.Tensor],
+                     cfg, score_fake: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``(G_loss, {"G_reg_loss"[, "G_clipcode_kl_loss"][, "G_pose_gan_loss"],
+    "G_loss"})`` for a prediction and its target: the KL for the batch's (B,
+    code_dim) codes, or (B, code_dim, T) per-frame codes, whose KL is over the
+    (B*T, code_dim) rows (None for a code-less generator: no KL); the LSGAN
+    term for the discriminator's scores of the prediction, ``score_fake``."""
     gcfg = cfg.VOICE2POSE.GENERATOR
     reg = (pred - gt).abs().mean() * gcfg.LAMBDA_REG
-    if code.ndim == 3:
-        code = code.transpose(1, 2).reshape(-1, code.shape[1])
-    mu, var = code.mean(0), code.var(0, correction=1)
-    safe = torch.where(var > 0, var, torch.ones_like(var))
-    kl = 0.5 * (-torch.log(safe) + mu ** 2 + var - 1.0).mean() * gcfg.LAMBDA_CLIP_KL
-    kl = torch.where((var != 0).all(), kl, torch.zeros_like(kl))
-    g_loss = reg + kl
-    return g_loss, {"G_reg_loss": reg, "G_clipcode_kl_loss": kl, "G_loss": g_loss}
+    losses = {"G_reg_loss": reg}
+    g_loss = reg
+    if code is not None:
+        if code.ndim == 3:
+            code = code.transpose(1, 2).reshape(-1, code.shape[1])
+        mu, var = code.mean(0), code.var(0, correction=1)
+        safe = torch.where(var > 0, var, torch.ones_like(var))
+        kl = 0.5 * (-torch.log(safe) + mu ** 2 + var - 1.0).mean() * gcfg.LAMBDA_CLIP_KL
+        kl = torch.where((var != 0).all(), kl, torch.zeros_like(kl))
+        losses["G_clipcode_kl_loss"] = kl
+        g_loss = g_loss + kl
+    if score_fake is not None:
+        gan = _mse(score_fake, 1.0) * cfg.VOICE2POSE.POSE_DISCRIMINATOR.LAMBDA_GAN
+        losses["G_pose_gan_loss"] = gan
+        g_loss = g_loss + gan
+    losses["G_loss"] = g_loss
+    return g_loss, losses
+
+
+def disc_losses(score_real: torch.Tensor, score_fake: torch.Tensor,
+                cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The LSGAN discriminator loss (MSE(real, 1) + MSE(fake, 0)) x LAMBDA_GAN
+    and the mean scores (the JAX ``_disc_losses``)."""
+    d_loss = ((_mse(score_real, 1.0) + _mse(score_fake, 0.0))
+              * cfg.VOICE2POSE.POSE_DISCRIMINATOR.LAMBDA_GAN)
+    return d_loss, {"D_pose_gan_loss": d_loss, "pose_score_fake": score_fake.mean(),
+                    "pose_score_real": score_real.mean()}
+
+
+@functools.lru_cache(maxsize=8)
+def _white_list(keypoints: tuple, device: torch.device) -> torch.Tensor:
+    # cached: the first (eager) step makes it, before a CUDA graph could copy
+    # it; outside inference mode, so that autograd may use it later
+    with torch.inference_mode(False):
+        return torch.tensor(keypoints, dtype=torch.long, device=device)
+
+
+def disc_input(poses: torch.Tensor, cfg) -> torch.Tensor:
+    """The discriminator's view of (B, T, 2, K) poses: POSE_DISCRIMINATOR.
+    WHITE_LIST's keypoints, then, with MOTION, the T - 1 frame-to-frame
+    differences (the JAX ``_disc_input``)."""
+    dcfg = cfg.VOICE2POSE.POSE_DISCRIMINATOR
+    if dcfg.WHITE_LIST is not None:
+        poses = poses.index_select(-1, _white_list(tuple(dcfg.WHITE_LIST), poses.device))
+    if dcfg.MOTION:
+        poses = poses[:, 1:] - poses[:, :-1]
+    return poses
+
+
+def p2g_renorm(batch: Dict[str, object], poses: torch.Tensor, cfg) -> torch.Tensor:
+    """The FGD encoder's input on global poses (the JAX ``_p2g_renorm``, as
+    written there): denormalized with ``speaker_stat`` (the global statistics
+    on global poses), re-rooted by ``parted_to_global``, renormalized with
+    ``speaker_stat_global``."""
+    stat, statg = batch["speaker_stat"], batch["speaker_stat_global"]
+    return transform_normalized_parted2global(poses, stat["mean"], stat["std"], statg["mean"],
+                                              statg["std"], cfg.DATASET.NUM_LANDMARKS)
+
+
+@contextlib.contextmanager
+def frozen(module: nn.Module):
+    """``module``'s parameters take no gradient inside (its forward still
+    moves its BN statistics); they are put back as they were."""
+    params = [p for p in module.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
+def _to_device(batch: Dict[str, object], dev: torch.device) -> Dict[str, object]:
+    """The batch's DEVICE_KEYS on ``dev`` (``speaker_stat``s nested)."""
+    return {k: ({kk: vv.to(dev, non_blocking=True) for kk, vv in v.items()}
+                if isinstance(v, dict) else v.to(dev, non_blocking=True))
+            for k, v in batch.items() if k in DEVICE_KEYS}
+
+
+def _encoder_inputs(b, pred: torch.Tensor, gt: torch.Tensor, cfg):
+    if cfg.DATASET.HIERARCHICAL_POSE:
+        return pred, gt
+    return p2g_renorm(b, pred, cfg), p2g_renorm(b, gt, cfg)
 
 
 def train_step(state: Voice2PoseTrainState, batch: Dict[str, object],
@@ -343,20 +457,31 @@ def train_step(state: Voice2PoseTrainState, batch: Dict[str, object],
     """One optimization step on a batch of ``datasets.gesture_dataset``;
     returns ``(losses, results)`` as device tensors (no host sync). ``plain``
     takes the mel's plain version even on the card (a reference)."""
-    cfg, dev = state.cfg, state.device
-    audio = batch["audio"].to(dev, non_blocking=True)
-    gt = batch["poses"].to(dev, non_blocking=True)
-    index = batch["clip_index"].to(dev, non_blocking=True)
-    stat = {k: v.to(dev, non_blocking=True) for k, v in batch["speaker_stat"].items()}
+    cfg = state.cfg
+    b = _to_device(batch, state.device)
+    gt, stat = b["poses"], b["speaker_stat"]
 
-    mel = (mel_spectrogram_plain if plain else mel_spectrogram)(audio)
-    code = state.clips_code[index]
+    mel = (mel_spectrogram_plain if plain else mel_spectrogram)(b["audio"])
+    code = None if state.clips_code is None else state.clips_code[b["clip_index"]]
     pred = state.generator(mel, cfg.DATASET.NUM_FRAMES, code)
-    g_loss, losses = generator_losses(pred, gt, code, cfg)
-    optimizers = [o for o in (state.opt_g, state.opt_code) if o is not None]
+    D, score_fake = state.discriminator, None
+    if D is not None:
+        # the reference's three train-mode forwards, in its order: each moves
+        # D's BN statistics once; D steps from its pre-step weights
+        fake = disc_input(pred, cfg)
+        score_real = D(disc_input(gt, cfg))
+        with frozen(D):
+            score_fake = D(fake)
+        d_loss, d_losses = disc_losses(score_real, D(fake.detach()), cfg)
+    g_loss, losses = generator_losses(pred, gt, code, cfg, score_fake)
+    total = g_loss
+    if D is not None:
+        losses.update(d_losses)
+        total = g_loss + d_loss  # G's gradient from g_loss only, D's from d_loss only
+    optimizers = state.optimizers()
     for o in optimizers:
         o.zero_grad(set_to_none=True)
-    g_loss.backward()
+    total.backward()
     for o in optimizers:
         o.step()
 
@@ -365,8 +490,9 @@ def train_step(state: Voice2PoseTrainState, batch: Dict[str, object],
     with torch.no_grad():
         pred = pred.detach()
         if state.pose_encoder is not None:
-            mu_p, lv_p = state.pose_encoder(pred)
-            mu_g, lv_g = state.pose_encoder(gt)
+            enc_pred, enc_gt = _encoder_inputs(b, pred, gt, cfg)
+            mu_p, lv_p = state.pose_encoder(enc_pred)
+            mu_g, lv_g = state.pose_encoder(enc_gt)
             results.update(mu_pred=mu_p, logvar_pred=lv_p, mu_gt=mu_g, logvar_gt=lv_g)
         final = [get_final_results(p, stat["mean"], stat["std"], stat["scale_factor"],
                                    cfg.DATASET.HIERARCHICAL_POSE, cfg.DATASET.NUM_LANDMARKS)
@@ -378,14 +504,17 @@ def train_step(state: Voice2PoseTrainState, batch: Dict[str, object],
 
 
 def condition_code(state: Voice2PoseTrainState, batch: Dict[str, torch.Tensor],
-                   interpolation_coeff: Optional[float] = None) -> torch.Tensor:
+                   interpolation_coeff: Optional[float] = None) -> Optional[torch.Tensor]:
     """The eval template codes of a device batch (the eval modes of the JAX
-    ``_condition_code``; a train step takes the bank rows at ``clip_index``).
-    The first mode set of: CLIP_CODE.SAMPLE_FROM_NORMAL (N(0, 1) codes),
-    CLIP_CODE.TEST_WITH_GT_CODE (the eval-mode pose encoder's mu of the ground
-    truth), DEMO.CODE_INDEX (that bank row for every sample, moved towards
-    DEMO.CODE_INDEX_B by ``interpolation_coeff``); else a bank row drawn
-    uniformly for each sample. Draws come from ``state.rng``."""
+    ``_condition_code``; a train step takes the bank rows at ``clip_index``);
+    None for a code-less generator. The first mode set of:
+    CLIP_CODE.SAMPLE_FROM_NORMAL (N(0, 1) codes), CLIP_CODE.TEST_WITH_GT_CODE
+    (the eval-mode pose encoder's mu of the ground truth, re-normalized on
+    global poses), DEMO.CODE_INDEX (that bank row for every sample, moved
+    towards DEMO.CODE_INDEX_B by ``interpolation_coeff``); else a bank row
+    drawn uniformly for each sample. Draws come from ``state.rng``."""
+    if state.clips_code is None:
+        return None
     cfg, bank = state.cfg, state.clips_code.detach()
     cc = cfg.VOICE2POSE.GENERATOR.CLIP_CODE
     B = batch["audio"].shape[0]
@@ -394,8 +523,11 @@ def condition_code(state: Voice2PoseTrainState, batch: Dict[str, torch.Tensor],
     if cc.TEST_WITH_GT_CODE:
         if state.pose_encoder is None:
             raise ValueError("CLIP_CODE.TEST_WITH_GT_CODE needs VOICE2POSE.POSE_ENCODER")
+        gt = batch["poses"]
+        if not cfg.DATASET.HIERARCHICAL_POSE:
+            gt = p2g_renorm(batch, gt, cfg)
         with eval_mode(state.pose_encoder):
-            return state.pose_encoder(batch["poses"])[0].float()
+            return state.pose_encoder(gt)[0].float()
     if cfg.DEMO.CODE_INDEX is not None:
         code = bank[cfg.DEMO.CODE_INDEX][None].expand(B, *bank.shape[1:])
         if interpolation_coeff is not None:
@@ -411,15 +543,14 @@ def eval_step(state: Voice2PoseTrainState, batch: Dict[str, object],
               fixed_code: Optional[torch.Tensor] = None, plain: bool = False
               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """One eval step on a batch repeated TEST.MULTIPLE times; returns
-    ``(losses, results)`` as device tensors: the losses and metrics where the
-    batch has ground truth, the pixel-space poses, the codes, and the pose
+    ``(losses, results)`` as device tensors: the losses (the GAN ones with D
+    in eval mode) and metrics where the batch has ground truth, the
+    pixel-space poses, the codes where the generator takes them, and the pose
     encoder's mu and logvar of prediction and ground truth. ``fixed_code``
     replaces ``condition_code``'s; ``plain`` takes the plain mel and stem
     even on the card (a reference)."""
     cfg, dev = state.cfg, state.device
-    b = {k: ({kk: vv.to(dev, non_blocking=True) for kk, vv in v.items()}
-             if isinstance(v, dict) else v.to(dev, non_blocking=True))
-         for k, v in batch.items() if k in ("audio", "poses", "clip_index", "speaker_stat")}
+    b = _to_device(batch, dev)
     if cfg.TEST.MULTIPLE > 1:
         b = multiply_batch(b, cfg.TEST.MULTIPLE)
     stat = b["speaker_stat"]
@@ -428,18 +559,25 @@ def eval_step(state: Voice2PoseTrainState, batch: Dict[str, object],
         return get_final_results(p, stat["mean"], stat["std"], stat["scale_factor"],
                                  cfg.DATASET.HIERARCHICAL_POSE, cfg.DATASET.NUM_LANDMARKS)
 
-    with eval_mode(state.generator, state.pose_encoder):
+    D = state.discriminator
+    with eval_mode(state.generator, state.pose_encoder, D):
         mel = (mel_spectrogram_plain if plain else mel_spectrogram)(b["audio"])
         code = fixed_code.to(dev) if fixed_code is not None else condition_code(state, b)
         pred = state.generator(mel, cfg.DATASET.NUM_FRAMES, code, plain=plain)
-        results = {"poses_pred_batch": final(pred), "condition_code": code}
+        results = {"poses_pred_batch": final(pred)}
+        if code is not None:
+            results["condition_code"] = code
         losses: Dict[str, torch.Tensor] = {}
         if "poses" in b:
             gt = b["poses"]
-            _, losses = generator_losses(pred, gt, code, cfg)
+            score_fake = None if D is None else D(disc_input(pred, cfg))
+            _, losses = generator_losses(pred, gt, code, cfg, score_fake)
+            if D is not None:
+                losses.update(disc_losses(D(disc_input(gt, cfg)), score_fake, cfg)[1])
             if state.pose_encoder is not None:
-                mu_p, lv_p = state.pose_encoder(pred)
-                mu_g, lv_g = state.pose_encoder(gt)
+                enc_pred, enc_gt = _encoder_inputs(b, pred, gt, cfg)
+                mu_p, lv_p = state.pose_encoder(enc_pred)
+                mu_g, lv_g = state.pose_encoder(enc_gt)
                 results.update(mu_pred=mu_p, logvar_pred=lv_p, mu_gt=mu_g, logvar_gt=lv_g)
             results["poses_gt_batch"] = final(gt)
             losses.update(step_metrics(results["poses_pred_batch"], results["poses_gt_batch"]))

@@ -1,12 +1,14 @@
-"""Where the SDT-BP train step's device time goes, by kernel, on one CUDA card.
+"""Where a Voice2Pose train step's device time goes, by kernel, on one CUDA card.
 
     python -m speechdrivestemplates_tpu_torch.profile_train [--batch 32] [--iters 5]
-        [--device-cache] [--steps-per-dispatch K]
+        [--device-cache] [--steps-per-dispatch K] [--config_file configs/NAME.yaml]
 
-Builds the bf16 train state (weights seeded with 0, a bank of 64 codes) and
-runs ``pipelines.voice2pose.train_step`` on a device-resident batch (random
-audio and normalized poses, the speaker's statistics), first timed by CUDA
-events, then under ``torch.profiler``. With ``--device-cache`` each step's
+Builds the bf16 train state of the preset that ``--config_file`` names, as
+``main.py`` picks it (SDT-BP by default; ``configs/voice2pose_s2g.yaml`` for
+s2g-GAN; weights seeded with 0, a train set of 64 clips) and runs
+``pipelines.voice2pose.train_step`` on a device-resident batch (random audio
+and normalized poses, the speaker's statistics), first timed by CUDA events,
+then under ``torch.profiler``. With ``--device-cache`` each step's
 batch is gathered from a device-resident train set of 64 random clips, as
 the trainer's DATASET.DEVICE_CACHE gathers it (``pipelines/graphed.py``);
 ``--steps-per-dispatch K`` > 1 runs K such steps in one CUDA graph (the state
@@ -17,8 +19,9 @@ their mean time by CUDA events around the same window, the device-busy time
 per step and the idle share of that window, the kernels per step; the device
 time per step by kind (the mel kernel, cuDNN convolution forward / data
 gradient / weight gradient, the Adam updates, the rest), the kernels ranked
-by device time, the forward + backward time of the stem's three plain layers
-at the step's shapes, and the launch counts of the port's kernels over the
+by device time, the forward + backward time of the audio encoder's first three
+layers at the step's shapes (an IN encoder's plain stem, a BN encoder's own
+layers), and the launch counts of the port's kernels over the
 warm-up and timed steps (host launches, captured, replayed, executed).
 """
 
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from . import kernels
-from .config import sdt_bp
+from .config import preset_for_config_file, sdt_bp
 from .datasets.speakers_stat import get_speaker_stat
 from .ops.stem import stem_plain
 from .pipelines.graphed import ChunkRunner
@@ -52,20 +55,28 @@ def kind_of(name: str) -> str:
 
 def train_batch(cfg, batch: int, num_train: int, device, seed: int = 0) -> dict:
     """A random batch in the loader's form, on ``device``: audio of the
-    snapped clip length, N(0, 1) normalized poses, the speaker's statistics."""
+    snapped clip length, N(0, 1) normalized poses, the speaker's statistics
+    (the parted or the global table, as DATASET.HIERARCHICAL_POSE says; on
+    global poses the global table again as ``speaker_stat_global``)."""
     rng = np.random.RandomState(seed)
-    stat = get_speaker_stat(cfg.DATASET.SPEAKER, cfg.DATASET.NUM_LANDMARKS, True)
+    parted = cfg.DATASET.HIERARCHICAL_POSE
     length = int(cfg.DATASET.NUM_FRAMES * cfg.DATASET.AUDIO_SR / cfg.DATASET.FPS)
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    return {"audio": dev((rng.randn(batch, length) * 0.1).astype(np.float32)),
-            "poses": dev(rng.randn(batch, cfg.DATASET.NUM_FRAMES, 2,
-                                   cfg.DATASET.NUM_LANDMARKS).astype(np.float32)),
-            "clip_index": dev(np.arange(batch) % num_train),
-            "speaker_stat": {k: dev(np.repeat(np.asarray(v)[None], batch, 0))
-                             for k, v in stat.items()}}
+    def stat(parted):
+        return {k: dev(np.repeat(np.asarray(v)[None], batch, 0)) for k, v in
+                get_speaker_stat(cfg.DATASET.SPEAKER, cfg.DATASET.NUM_LANDMARKS, parted).items()}
+
+    out = {"audio": dev((rng.randn(batch, length) * 0.1).astype(np.float32)),
+           "poses": dev(rng.randn(batch, cfg.DATASET.NUM_FRAMES, 2,
+                                  cfg.DATASET.NUM_LANDMARKS).astype(np.float32)),
+           "clip_index": dev(np.arange(batch) % num_train),
+           "speaker_stat": stat(parted)}
+    if not parted:
+        out["speaker_stat_global"] = stat(False)
+    return out
 
 
 def main(argv=None) -> None:
@@ -76,6 +87,8 @@ def main(argv=None) -> None:
                     help="gather each batch from a device-resident train set")
     ap.add_argument("--steps-per-dispatch", type=int, default=1, metavar="K",
                     help="K > 1: K steps in one CUDA graph (needs --device-cache)")
+    ap.add_argument("--config_file", default="", metavar="FILE",
+                    help="configs/<name>.yaml: the Voice2Pose preset (default SDT-BP)")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     K = args.steps_per_dispatch
@@ -83,7 +96,9 @@ def main(argv=None) -> None:
         ap.error("--steps-per-dispatch > 1 needs --device-cache")
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = sdt_bp()
+    cfg = preset_for_config_file(args.config_file) if args.config_file else sdt_bp()
+    if cfg.PIPELINE_TYPE != "Voice2Pose":
+        ap.error(f"--config_file {args.config_file}: not a Voice2Pose preset")
     num_train = 64
     state = Voice2PoseTrainState(cfg, num_train, dev, capturable=K > 1)
     batch = train_batch(cfg, args.batch, num_train, dev)
@@ -135,19 +150,26 @@ def main(argv=None) -> None:
     for name, ms, _ in rows:
         kinds[kind_of(name)] = kinds.get(kind_of(name), 0.0) + ms
 
-    # the stem's three plain layers, forward and backward, at the step's shapes
-    layers = state.generator.audio_encoder.layers()[:3]
-    weights = [m.conv.weight for m in layers]
+    # the encoder's first three layers, forward and backward, at the step's shapes
+    encoder = state.generator.audio_encoder
+    layers = encoder.layers()[:3]
     mel = torch.randn(args.batch, 80, batch["audio"].shape[-1] // 160 + 1, device=dev)
 
     def stem_fwd_bwd():
-        out = stem_plain(mel, *weights, slope=layers[0].slope, dtype=state.generator.dtype)
+        if encoder.norm == "BN":
+            out = mel[:, None]
+            for m in layers:
+                out = m(out)
+        else:
+            out = stem_plain(mel, *(m.conv.weight for m in layers), slope=layers[0].slope,
+                             dtype=state.generator.dtype)
         out.float().sum().backward()
 
     stem_ms = cuda_ms(stem_fwd_bwd, [()], args.iters)
     state.opt_g.zero_grad(set_to_none=True)
     print(json.dumps({
-        "card": card(), "batch": args.batch, "precision": cfg.TRAIN.PRECISION,
+        "card": card(), "config_file": args.config_file or "configs/voice2pose_sdt_bp.yaml",
+        "batch": args.batch, "precision": cfg.TRAIN.PRECISION,
         "device_cache": args.device_cache, "steps_per_dispatch": K,
         "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
         "profiled_step_ms": window_ms, "device_busy_ms": busy,

@@ -3,17 +3,23 @@
 ``build_serving_fn(cfg, state_dict, device)`` returns ``(fn, has_code)``:
 ``fn(audio[, code])`` maps a (B, L) float32 16 kHz waveform batch (and a
 (B, code_dim) template code for code models) to (B, num_frames, 2, K) float32
-poses in pixel space: mel frontend, generator, the speaker's statistics, and
-re-rooting to global coordinates when DATASET.HIERARCHICAL_POSE. B and L come
-from the input.
+poses in pixel space: mel frontend, generator, the speaker's statistics (the
+parted or the global table, as DATASET.HIERARCHICAL_POSE says), and re-rooting
+to global coordinates when DATASET.HIERARCHICAL_POSE. B and L come from the
+input.
 
 Command line (one wav request; a reference-layout ``.pth`` checkpoint):
 
     python -m speechdrivestemplates_tpu_torch.serving ckpt.pth in.wav out.npz \
-        [--code-seed N] [--device cuda|cpu] [--speaker oliver]
+        [--config_file configs/NAME.yaml] [--code-seed N] [--device cuda|cpu]
+        [--speaker oliver]
 
+``--config_file`` picks the Voice2Pose preset the checkpoint was trained with,
+as ``main.py`` picks it (``configs/voice2pose_sdt_bp.yaml``, the default,
+``configs/voice2pose_sdt_vae.yaml`` or ``configs/voice2pose_s2g.yaml``).
 Audio longer than DATASET.AUDIO_LENGTH is cropped, shorter audio zero-padded.
-The code is N(0, 1) from ``numpy.random.RandomState(code_seed)``.
+A code model's code is N(0, 1) from ``numpy.random.RandomState(code_seed)``;
+a code-less checkpoint (s2g) draws no code.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
-from .config import sdt_bp
+from .config import preset_for_config_file, sdt_bp
 from .datasets.speakers_stat import get_speaker_stat
 from .models import build_model
 from .ops.mel import mel_spectrogram
@@ -92,8 +98,10 @@ def load_wav_16k(path: str) -> np.ndarray:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
         prog="python -m speechdrivestemplates_tpu_torch.serving",
-        description="wav -> poses with an SDT-BP generator checkpoint")
+        description="wav -> poses with a Voice2Pose generator checkpoint")
     ap.add_argument("checkpoint", help="reference-layout .pth (module.netG.* keys)")
+    ap.add_argument("--config_file", default="", metavar="FILE",
+                    help="configs/<name>.yaml: the checkpoint's preset (default SDT-BP)")
     ap.add_argument("wav")
     ap.add_argument("out", help="output npz (poses in pixel space)")
     ap.add_argument("--code-seed", type=int, default=0,
@@ -103,7 +111,13 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = sdt_bp(speaker=args.speaker)
+    try:
+        cfg = preset_for_config_file(args.config_file) if args.config_file else sdt_bp()
+    except ValueError as e:
+        ap.error(str(e))
+    if cfg.PIPELINE_TYPE != "Voice2Pose":
+        ap.error(f"--config_file {args.config_file}: not a Voice2Pose preset")
+    cfg.DATASET.SPEAKER = args.speaker
     fn, has_code = build_serving_fn(cfg, load_reference_pth(args.checkpoint), device)
 
     L = cfg.DATASET.AUDIO_LENGTH

@@ -6,8 +6,9 @@ tensor after the reference torch attribute: conv kernels transposed HWIO ->
 OIHW and WIO -> OIW, norm ``scale``/``bias`` -> ``weight``/``bias``, batch
 statistics ``mean``/``var`` -> ``running_mean``/``running_var`` (with a zero
 ``num_batches_tracked``). The results load into the port's modules with
-``strict=True``. ``state_from_jax`` takes all three trained parts out of a JAX
-``Voice2Pose.state``. ``load_reference_pth`` reads the generator out of the
+``strict=True``. ``discriminator_params_from_jax`` does the same for s2g's
+``PoseSequenceDiscriminator``. ``state_from_jax`` takes the trained parts out
+of a JAX ``Voice2Pose.state``. ``load_reference_pth`` reads the generator out of the
 reference checkpoint layout ``{epoch, step, model_state_dict}`` with
 ``module.netG.`` keys, which the port's trainer and the JAX package's
 ``main.py --export_torch`` write.
@@ -43,6 +44,15 @@ def reverse_generator(path: Path) -> str:
         tail = path[0].rsplit("_", 1)[1]
         return f"decoder.{4 if tail == 'out' else int(tail)}"
     raise KeyError(f"unmapped generator path {path}")
+
+
+def reverse_discriminator(path: Path) -> str:
+    """JAX discriminator param path -> reference torch module path."""
+    if path[0].startswith("ConvNormRelu_"):
+        return f"seq.{int(path[0].rsplit('_', 1)[1])}"
+    if path[0] == "Conv_0":
+        return "seq.3"
+    raise KeyError(f"unmapped discriminator path {path}")
 
 
 def reverse_pose_encoder(path: Path) -> str:
@@ -118,6 +128,13 @@ def params_from_jax(params_g: Dict[str, Any],
     return _module_from_jax(params_g, batch_stats_g, reverse_generator)
 
 
+def discriminator_params_from_jax(params_d: Dict[str, Any],
+                                  batch_stats_d: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``PoseSequenceDiscriminator`` params and batch statistics -> the
+    port's discriminator state_dict (float32)."""
+    return _module_from_jax(params_d, batch_stats_d, reverse_discriminator)
+
+
 def pose_encoder_params_from_jax(params_pe: Dict[str, Any],
                                  batch_stats_pe: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``PoseSeqEncoder`` params and batch statistics -> the port's
@@ -127,14 +144,20 @@ def pose_encoder_params_from_jax(params_pe: Dict[str, Any],
 
 def state_from_jax(state: Dict[str, Any]) -> Dict[str, Any]:
     """A JAX ``Voice2Pose.state`` (host arrays) -> ``{"generator": state_dict,
-    "clips_code": tensor, "pose_encoder": state_dict}``, the parts the port's
-    train state loads (``Voice2PoseTrainState.load``)."""
-    return {
+    "clips_code": tensor or None (a code-less generator), "pose_encoder":
+    state_dict}``, with ``"discriminator": state_dict`` where the state has
+    one: the parts the port's train state loads (``Voice2PoseTrainState.load``)."""
+    bank = state.get("clips_code")
+    out = {
         "generator": params_from_jax(state["params_g"], state.get("batch_stats_g")),
-        "clips_code": torch.tensor(np.asarray(state["clips_code"], dtype=np.float32)),
+        "clips_code": None if bank is None else torch.tensor(np.asarray(bank, np.float32)),
         "pose_encoder": pose_encoder_params_from_jax(state["params_pe"],
                                                      state["batch_stats_pe"]),
     }
+    if state.get("params_d"):
+        out["discriminator"] = discriminator_params_from_jax(state["params_d"],
+                                                             state["batch_stats_d"])
+    return out
 
 
 def autoencoder_params_from_jax(params_ae: Dict[str, Any],

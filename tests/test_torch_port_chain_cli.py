@@ -78,12 +78,64 @@ def test_cli_refuses_what_it_lacks(tmp_path):
         port_main.main(["--device", "cpu", "--checkpoint", "x.pth"])  # without --test_only
     with pytest.raises(SystemExit):
         port_main.main(["--device", "cpu", "--config_file", "configs/other.yaml"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_main.main(["--device", "cpu", "--config_file", "configs/voice2pose_s2g.yaml"])
+    with pytest.raises(NotImplementedError, match="TRAIN.SAVE_VIDEO True .* item 13"):
+        port_main.main(["--device", "cpu", "--config_file", "configs/voice2pose_s2g.yaml",
+                        "SYS.OUTPUT_DIR", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="TEST.SAVE_VIDEO True .* item 13"):
         port_main.main(["--device", "cpu", "--test_only", "--checkpoint", "x.pth",
                         "TRAIN.SAVE_VIDEO", "False", "SYS.OUTPUT_DIR", str(tmp_path)])
     assert not os.listdir(tmp_path)
+
+
+def test_s2g_train_test_resume_serve(tmp_path, capsys):
+    """s2g-GAN through the command line: ``--config_file
+    configs/voice2pose_s2g.yaml`` trains 2 epochs with a validation each,
+    ``--test_only`` of its checkpoint gives the four test metrics,
+    ``--resume_from`` its epoch-1 checkpoint trains the last epoch again to
+    the same weights, and the serving command line with the same
+    ``--config_file`` serves a wav from it without a code."""
+    import wave
+
+    from speechdrivestemplates_tpu_torch import serving
+
+    root = str(tmp_path / "speakers")
+    make_synthetic_speaker(root, "oliver", num_train=2, num_dev=2, seed=2)
+    out = str(tmp_path / "runs")
+    common = ["--config_file", "configs/voice2pose_s2g.yaml", "DATASET.ROOT_DIR", root,
+              "SYS.OUTPUT_DIR", out, "TRAIN.NUM_EPOCHS", "2", "TRAIN.BATCH_SIZE", "2",
+              "TEST.BATCH_SIZE", "2", "TRAIN.SAVE_VIDEO", "False", "TEST.SAVE_VIDEO", "False",
+              "TRAIN.PRECISION", "fp32", "SYS.NUM_WORKERS", "0"]
+    run = _run(capsys, "--tag", "s2g", *common, "TRAIN.VALIDATE", "True")
+    assert run["steps"] == 2 and {"G_pose_gan_loss", "D_pose_gan_loss"} <= set(run["losses"])
+    assert "G_clipcode_kl_loss" not in run["losses"] and np.isfinite(run["val_metrics"]["FGD_mu"])
+    sd = read_pth(run["checkpoint"])
+    assert "clips_code" not in sd and any(k.startswith("netD_pose.") for k in sd)
+
+    test = _run(capsys, "--test_only", "--checkpoint", run["checkpoint"], "--tag", "t", *common)
+    for k in ("L2_dist", "lip_sync_error_n", "FGD_mu", "FGD_mu_logvar"):
+        assert np.isfinite(test["metrics"][k]), k
+    np.testing.assert_allclose(test["metrics"]["L2_dist"], run["val_metrics"]["L2_dist"],
+                               rtol=1e-6)
+
+    first = glob.glob(os.path.join(run["output_dir"], "checkpoints", "*epoch-1_*.pth"))[0]
+    again = _run(capsys, "--tag", "s2g", "--resume_from", first, *common,
+                 "TRAIN.VALIDATE", "True")
+    assert again["checkpoint"] == run["checkpoint"] and again["losses"] == run["losses"]
+    assert all(torch.equal(v, sd[k]) for k, v in read_pth(again["checkpoint"]).items())
+
+    wav = str(tmp_path / "in.wav")
+    with wave.open(wav, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((np.random.RandomState(3).randn(40000) * 3000).astype(np.int16).tobytes())
+    poses = str(tmp_path / "poses.npz")
+    serving.main([run["checkpoint"], wav, poses, "--config_file",
+                  "configs/voice2pose_s2g.yaml", "--device", "cpu"])
+    with np.load(poses) as z:
+        assert z["poses"].shape == (64, 2, 121) and np.isfinite(z["poses"]).all()
+    with pytest.raises(RuntimeError, match="Unexpected key"):  # an s2g .pth is no SDT-BP model
+        serving.main([run["checkpoint"], wav, poses, "--device", "cpu"])
 
 
 def test_chain_script_runs_its_stages(tmp_path, capsys):

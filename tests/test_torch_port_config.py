@@ -52,8 +52,10 @@ def test_config_file_names_pick_the_presets():
         assert C.preset_for_config_file(f"configs/{name}.yaml") == fn()
     assert C.preset_for_config_file("voice2pose_sdt_vae.yaml").VOICE2POSE.GENERATOR.CLIP_CODE.EXTERNAL_CODE
     assert C.pose2pose().TRAIN.PRECISION == "fp32" and C.sdt_vae().TRAIN.PRECISION == "bf16"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 11"):
-        C.preset_for_config_file("configs/voice2pose_s2g.yaml")
+    g = C.preset_for_config_file("configs/voice2pose_s2g.yaml")
+    assert g == C.s2g() and g.TRAIN.PRECISION == "bf16" and g.VOICE2POSE.GENERATOR.NORM == "BN"
+    assert g.VOICE2POSE.GENERATOR.CLIP_CODE.DIMENSION is None
+    assert g.VOICE2POSE.POSE_DISCRIMINATOR.NAME == "PoseSequenceDiscriminator"
     with pytest.raises(ValueError, match="no preset for config file"):
         C.preset_for_config_file("configs/my_model.yaml")
 
@@ -71,6 +73,36 @@ def test_new_keys_parse_like_yacs():
             "TRAIN.NUM_RESULT_SAMPLE", "4", "PIPELINE_TYPE", "Pose2Pose"]
     cfg = C.apply_overrides(C.sdt_bp(), list(opts))
     ref = get_cfg_defaults()
+    ref.merge_from_list(list(opts))
+    for key in opts[0::2]:
+        got, want = cfg, ref
+        for part in key.split("."):
+            got, want = getattr(got, part), want[part]
+        assert got == want and type(got) is type(want), (key, got, want)
+
+
+@pytest.mark.parametrize("opts", [
+    ["VOICE2POSE.POSE_DISCRIMINATOR.WHITE_LIST", "[3, 71, 75]",
+     "VOICE2POSE.POSE_DISCRIMINATOR.LAMBDA_GAN", "1", "VOICE2POSE.POSE_DISCRIMINATOR.MOTION",
+     "False", "VOICE2POSE.POSE_DISCRIMINATOR.LEAKY_RELU", "True"],
+    ["VOICE2POSE.POSE_DISCRIMINATOR.WHITE_LIST", "(0, 1)",
+     "VOICE2POSE.POSE_DISCRIMINATOR.LAMBDA_GAN", "0.5"]], ids=["list", "tuple"])
+def test_discriminator_keys_parse_like_yacs(opts):
+    """POSE_DISCRIMINATOR's keys have the JAX defaults (LEAKY_RELU False,
+    LAMBDA_GAN 1.0, MOTION True, WHITE_LIST None) on every preset but s2g, and
+    take command-line values as yacs' merge_from_list does: WHITE_LIST, None
+    by default, a list or a tuple of keypoint indices; an int LAMBDA_GAN as a
+    float."""
+    from speechdrivestemplates_tpu.config import get_cfg_defaults
+
+    ref = get_cfg_defaults()
+    d = ref.VOICE2POSE.POSE_DISCRIMINATOR
+    for name, preset in C.PRESETS.items():
+        got = preset().VOICE2POSE.POSE_DISCRIMINATOR
+        if name != "voice2pose_s2g":
+            assert (got.LEAKY_RELU, got.LAMBDA_GAN, got.MOTION, got.WHITE_LIST) == \
+                (d.LEAKY_RELU, d.LAMBDA_GAN, d.MOTION, d.WHITE_LIST), name
+    cfg = C.apply_overrides(C.s2g(), list(opts))
     ref.merge_from_list(list(opts))
     for key in opts[0::2]:
         got, want = cfg, ref

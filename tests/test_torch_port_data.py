@@ -234,11 +234,8 @@ def test_overrides_parse_like_yacs():
 
 
 @pytest.mark.parametrize("opts,match", [
-    (["VOICE2POSE.POSE_DISCRIMINATOR.NAME", "PoseSequenceDiscriminator"], "item 11"),
-    (["VOICE2POSE.GENERATOR.CLIP_CODE.DIMENSION", "None"], "item 11"),
     (["TRAIN.SAVE_VIDEO", "True"], "item 13"),
     (["TRAIN.VALIDATE", "True", "TEST.SAVE_VIDEO", "True"], "item 13"),
-    (["DATASET.HIERARCHICAL_POSE", "False"], "item 11"),
     (["PIPELINE_TYPE", "Pose2Pose", "POSE2POSE.AUTOENCODER.NAME", "Autoencoder",
       "TRAIN.SAVE_VIDEO", "True"], "item 13"),
 ])
@@ -251,6 +248,35 @@ def test_unported_options_raise_naming_the_roadmap(speaker_root, tmp_path, opts,
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A, {match}"):
         train(cfg, "t", device="cpu")
     assert not os.listdir(tmp_path)  # refused before anything is written
+
+
+@pytest.mark.parametrize("opt", ["discriminator", "code_less", "global_poses"])
+def test_s2g_options_train_on_sdt_bp(speaker_root, tmp_path, opt):
+    """Each of s2g's options, which the port refused before it ported s2g,
+    alone on SDT-BP: one epoch of one step trains and writes a checkpoint
+    that shows it (the discriminator's losses and ``netD_pose.*``; no bank
+    and no KL; global poses and their statistics)."""
+    from speechdrivestemplates_tpu_torch.pipelines.trainer import train
+    from speechdrivestemplates_tpu_torch.utils.weights import read_pth
+
+    opts = {"discriminator": ["VOICE2POSE.POSE_DISCRIMINATOR.NAME", "PoseSequenceDiscriminator"],
+            "code_less": ["VOICE2POSE.GENERATOR.CLIP_CODE.DIMENSION", "None"],
+            "global_poses": ["DATASET.HIERARCHICAL_POSE", "False"]}[opt]
+    cfg = _port_cfg(speaker_root, "TRAIN.VALIDATE", "False", "TRAIN.SAVE_VIDEO", "False",
+                    "SYS.OUTPUT_DIR", str(tmp_path), "TRAIN.PRECISION", "fp32",
+                    "TRAIN.BATCH_SIZE", "2", "DATASET.SUBSET", "2", "TRAIN.NUM_EPOCHS", "1",
+                    *opts)
+    out = train(cfg, "t", device="cpu")
+    sd = read_pth(out["checkpoint"])
+    assert out["steps"] == 1 and all(np.isfinite(v) for v in out["losses"].values())
+    assert ("D_pose_gan_loss" in out["losses"]) == (opt == "discriminator")
+    assert any(k.startswith("netD_pose.") for k in sd) == (opt == "discriminator")
+    has_code = opt != "code_less"
+    assert ("G_clipcode_kl_loss" in out["losses"]) == ("clips_code" in sd) == has_code
+    if opt == "global_poses":
+        item = GestureDataset(speaker_root, "oliver", cfg)[0]
+        np.testing.assert_array_equal(item["speaker_stat"]["mean"],
+                                      item["speaker_stat_global"]["mean"])
 
 
 def test_train_step_without_a_pose_encoder(speaker_root):

@@ -323,18 +323,19 @@ def test_stem_kernels_match_plain_at_the_ragged_eval_batch(cuda, dtype):
 
 def _device_cache(cfg, n, pipeline):
     """A device-resident train set of ``n`` random clips in the loader's form,
-    the keys ``pipeline`` stages."""
+    the keys ``pipeline``'s pipeline stages (those the batch has)."""
     from speechdrivestemplates_tpu_torch.pipelines.trainer import PIPELINES
     from speechdrivestemplates_tpu_torch.profile_train import train_batch
 
     batch = train_batch(cfg, n, n, "cuda", seed=3)
-    return {k: batch[k] for k in PIPELINES[pipeline].device_keys}
+    return {k: batch[k] for k in PIPELINES[cfg.PIPELINE_TYPE].device_keys if k in batch}
 
 
 def _graph_cfg(pipeline, *opts):
-    from speechdrivestemplates_tpu_torch.config import apply_overrides, pose2pose, sdt_bp
+    """``pipeline``: 'Voice2Pose' (SDT-BP), 's2g' or 'Pose2Pose'."""
+    from speechdrivestemplates_tpu_torch.config import apply_overrides, pose2pose, s2g, sdt_bp
 
-    cfg = sdt_bp() if pipeline == "Voice2Pose" else pose2pose()
+    cfg = {"Voice2Pose": sdt_bp, "s2g": s2g, "Pose2Pose": pose2pose}[pipeline]()
     return apply_overrides(cfg, ["TRAIN.BATCH_SIZE", "2", "TRAIN.STEPS_PER_DISPATCH", "3",
                                  *opts])
 
@@ -346,7 +347,7 @@ def _run_chunks(pipeline, cfg, cache, chunks, graphed, between=None):
     from speechdrivestemplates_tpu_torch.pipelines.graphed import ChunkRunner
     from speechdrivestemplates_tpu_torch.pipelines.trainer import PIPELINES
 
-    p = PIPELINES[pipeline]
+    p = PIPELINES[cfg.PIPELINE_TYPE]
     state = p.state(cfg, cache["clip_index"].shape[0], "cuda", capturable=True)
     runner = ChunkRunner(state, p.train_step, cache, graphed=graphed)
     rows = []
@@ -364,14 +365,15 @@ _CHUNKS = [[[0, 1], [2, 3], [4, 5]], [[6, 7], [1, 0], [3, 2]], [[5, 4], [7, 6], 
            [[1, 3], [4, 6]]]
 
 
-@pytest.mark.parametrize("pipeline", ["Voice2Pose", "Pose2Pose"])
+@pytest.mark.parametrize("pipeline", ["Voice2Pose", "s2g", "Pose2Pose"])
 def test_graphed_chunks_match_eager_steps(cuda, pipeline):
     """K = 3 steps a CUDA graph against the same steps run eagerly under the
     same capturable Adam, on the same cache rows: the loss rows, every weight,
-    bank and BN statistic, the Adams' moments and the noise generator's
-    offset agree bit for bit (cuDNN deterministic on both sides). For
-    Voice2Pose the mel kernel ran once per step: eager launches, then
-    captured ones counted apart from the replays that ran them."""
+    bank and BN statistic (s2g's discriminator's, moved three times a step,
+    included), the Adams' moments and the noise generator's offset agree bit
+    for bit (cuDNN deterministic on both sides). For Voice2Pose and s2g the
+    mel kernel ran once per step: eager launches, then captured ones counted
+    apart from the replays that ran them; s2g ran neither conv1 nor the stem."""
     from speechdrivestemplates_tpu_torch import kernels
 
     torch.backends.cudnn.deterministic = True
@@ -398,12 +400,53 @@ def test_graphed_chunks_match_eager_steps(cuda, pipeline):
             for key in ("exp_avg", "exp_avg_sq", "step"):
                 assert torch.equal(go.state[p_g][key], eo.state[p_e][key]), key
     assert g_state.rng.get_offset() == e_state.rng.get_offset()
-    if pipeline == "Voice2Pose":
+    if pipeline != "Pose2Pose":
         launches, captured, replayed, executed = counts
         assert launches["mel"] == 3 + 3 + 2 and captured["mel"] == 3 + 2
         assert replayed["mel"] == 3 + 3 + 2 and executed["mel"] == steps
+        assert set(launches) == {"mel"}
     else:
         assert not counts[0]
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_s2g_eval_forward_on_the_card_equals_its_plain_forward(cuda, dtype):
+    """s2g's BN generator in eval mode with non-trivial running statistics
+    (two train-mode forwards first), through ``build_serving_fn`` on the
+    card: the mel kernel once, conv1 and the stem never (their counters stay
+    at 0: the kernels compute InstanceNorm); the same weights' forward on the
+    plain mel, with ``plain``, agrees within the mel kernel's round-off
+    (rel L2 < 1e-3 in fp32, < 2e-2 in bf16)."""
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.config import s2g
+    from speechdrivestemplates_tpu_torch.datasets.speakers_stat import get_speaker_stat
+    from speechdrivestemplates_tpu_torch.models import build_model
+    from speechdrivestemplates_tpu_torch.ops import mel as M
+    from speechdrivestemplates_tpu_torch.ops.pose import get_final_results
+    from speechdrivestemplates_tpu_torch.serving import build_serving_fn
+
+    cfg = s2g(precision=dtype)
+    rng = np.random.RandomState(9)
+    model = build_model("SequenceGeneratorCNN", cfg, "cuda").train()
+    with torch.no_grad():
+        for _ in range(2):
+            model(M.mel_spectrogram_plain(_randn(rng, 4, 68266, scale=0.1)), 64, None)
+    model.eval()
+    sd = model.state_dict()
+    fn, has_code = build_serving_fn(cfg, sd, "cuda")
+    audio = _randn(rng, 8, 68267, scale=0.1)
+    kernels.reset_launch_counts()
+    got = fn(audio)
+    torch.cuda.synchronize()
+    assert not has_code and dict(kernels.LAUNCHES) == {"mel": 1}
+    with torch.no_grad():
+        pred = model(M.mel_spectrogram_plain(audio), 64, None, plain=True)
+    stat = {k: torch.as_tensor(np.repeat(np.asarray(v)[None], 8, 0)).cuda()
+            for k, v in get_speaker_stat("oliver", 121, False).items()}
+    want = get_final_results(pred, stat["mean"], stat["std"], stat["scale_factor"], False)
+    rel = (torch.linalg.norm(got.float() - want.float()) / torch.linalg.norm(want.float())).item()
+    assert got.shape == (8, 64, 2, 121) and rel < (1e-3 if dtype == "fp32" else 2e-2), rel
+    assert dict(kernels.LAUNCHES) == {"mel": 1}
 
 
 def test_graph_replays_draw_fresh_pose2pose_noise(cuda):

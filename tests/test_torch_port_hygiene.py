@@ -68,9 +68,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(tmp_path):
     sd = build_model("SequenceGeneratorCNN", cfg, device="cpu").state_dict()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serving.build_serving_fn(cfg, sd)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        serving.main([str(tmp_path / "x.pth"), str(tmp_path / "x.wav"),
-                      str(tmp_path / "x.npz")])
+    for extra in ([], ["--config_file", "configs/voice2pose_s2g.yaml"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serving.main([str(tmp_path / "x.pth"), str(tmp_path / "x.wav"),
+                          str(tmp_path / "x.npz"), *extra])
     for probe in ([], ["--conv1-probe"], ["--shift-probe", "--probe-c", "64"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             profile_kernels.main(probe)
@@ -109,7 +110,10 @@ def test_test_and_pose2pose_entry_points_need_cuda(tmp_path):
         chain_e2e.main(["pose2pose", "--out", out])
     for argv in (["--test_only", "--checkpoint", str(tmp_path / "x.pth")],
                  ["--config_file", "configs/pose2pose.yaml"],
-                 ["--config_file", "configs/voice2pose_sdt_vae.yaml"]):
+                 ["--config_file", "configs/voice2pose_sdt_vae.yaml"],
+                 ["--config_file", "configs/voice2pose_s2g.yaml"],
+                 ["--config_file", "configs/voice2pose_s2g.yaml", "--test_only",
+                  "--checkpoint", str(tmp_path / "x.pth")]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main.main([*argv, "SYS.OUTPUT_DIR", out])
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -123,10 +127,13 @@ def test_test_and_pose2pose_entry_points_need_cuda(tmp_path):
 
 def test_every_refusal_names_its_roadmap_item():
     """Each ``raise NotImplementedError`` in the port says which queue-A item
-    of ROADMAP.md will port what it refuses. Literal items in this tree: 11
-    (s2g: the discriminator, code-less generators, global poses); 13 (videos)
-    comes through the trainer's table."""
+    of ROADMAP.md will port what it refuses. Since s2g (item 11) is ported,
+    what is left is the trainer's table, whose refusals (videos) name item 13;
+    a refusal of item 14 or 15 would name its item literally."""
     import re
+
+    from speechdrivestemplates_tpu_torch.config import sdt_bp
+    from speechdrivestemplates_tpu_torch.pipelines.trainer import check_trainer_options
 
     items, raises = set(), 0
     for f in sorted(PORT.rglob("*.py")):
@@ -139,7 +146,13 @@ def test_every_refusal_names_its_roadmap_item():
                 assert "ROADMAP.md" in src and found, (f.name, src)
                 items.add(found.group(1))
                 raises += 1
-    assert raises >= 4 and items >= {"11", "{item}"}, (raises, items)
+    assert raises >= 1 and items <= {"{item}", "13", "14", "15"}, (raises, items)
+    for key in ("TRAIN.SAVE_VIDEO", "TEST.SAVE_VIDEO"):
+        cfg = sdt_bp()
+        cfg.TRAIN.SAVE_VIDEO = cfg.TEST.SAVE_VIDEO = False
+        setattr(cfg.TRAIN if key.startswith("TRAIN") else cfg.TEST, "SAVE_VIDEO", True)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 13"):
+            check_trainer_options(cfg, evaluates=True)
 
 
 def test_cpu_serving_launches_no_kernel(rng):
@@ -206,6 +219,33 @@ def test_kernel_wrappers_refuse_tensors_that_require_grad():
     kernels.refuse_grad("x", torch.zeros(2), torch.zeros(2, requires_grad=False))
     with torch.inference_mode():
         kernels.refuse_grad("x", torch.zeros(2, requires_grad=True))
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_bn_audio_encoder_never_takes_the_in_stem(monkeypatch, rng, train):
+    """A BN audio encoder (s2g) runs its eight layers itself in train and in
+    eval mode: the stem functions, which compute InstanceNorm, would raise
+    here. Its output is the eight layers' on ``mel[:, None]``."""
+    from speechdrivestemplates_tpu_torch.config import s2g
+    from speechdrivestemplates_tpu_torch.models import build_model
+    from speechdrivestemplates_tpu_torch.ops import stem as stem_ops
+    from speechdrivestemplates_tpu_torch.ops.resize import interpolate_bilinear
+
+    def refuse(*args, **kw):
+        raise AssertionError("a BN encoder reached an InstanceNorm stem function")
+
+    for name in ("stem_plain", "audio_encoder_stem", "stem_kernel"):
+        monkeypatch.setattr(stem_ops, name, refuse)
+    encoder = build_model("SequenceGeneratorCNN", s2g(precision="fp32"),
+                          device="cpu").audio_encoder.train(train)
+    mel = torch.from_numpy(rng.randn(2, 80, 64).astype(np.float32))
+    out = encoder(mel, 32)
+    x = mel[:, None]
+    with torch.no_grad():
+        for layer in encoder.layers():
+            x = layer(x)
+    assert out.shape == (2, 256, 32)
+    torch.testing.assert_close(out, interpolate_bilinear(x, (1, 32))[:, :, 0, :])
 
 
 def test_generator_route_follows_train_mode(monkeypatch, rng):

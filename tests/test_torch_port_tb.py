@@ -105,6 +105,26 @@ def test_a_training_run_writes_the_jax_tags_at_the_jax_steps(speaker_root, tmp_p
     assert got == {f"test/{k}": (0, float(np.float32(v))) for k, v in tested["metrics"].items()}
 
 
+def test_s2g_run_writes_the_discriminator_tags(speaker_root, tmp_path):
+    """s2g: a log line at each of 2 steps writes ``train/lr_G`` and
+    ``train/lr_D_pose`` (the JAX ``current_lrs`` names) and the D losses and
+    scores beside the generator's, no clip-code KL."""
+    from speechdrivestemplates_tpu_torch.config import s2g
+
+    cfg = apply_overrides(s2g(precision="fp32"), [
+        "DATASET.ROOT_DIR", speaker_root, "SYS.OUTPUT_DIR", str(tmp_path), "TRAIN.BATCH_SIZE",
+        "2", "DATASET.SUBSET", "4", "TRAIN.NUM_EPOCHS", "1", "TRAIN.VALIDATE", "False",
+        "TRAIN.SAVE_VIDEO", "False", "SYS.NUM_WORKERS", "0", "SYS.LOG_INTERVAL", "1"])
+    out = trainer.train(cfg, "s2g", "cpu")
+    tags = {e["tag"]: [] for e in _events(out["output_dir"])}
+    for e in _events(out["output_dir"]):
+        tags[e["tag"]].append(e["step"])
+    for k in ("lr_G", "lr_D_pose", "G_reg_loss", "G_pose_gan_loss", "G_loss", "D_pose_gan_loss",
+              "pose_score_fake", "pose_score_real", "L2_dist"):
+        assert tags[f"train/{k}"] == [1, 2], k
+    assert "train/lr_ClipCode" not in tags and "train/G_clipcode_kl_loss" not in tags
+
+
 def test_profile_window_writes_a_chrome_trace(speaker_root, tmp_path):
     """SYS.PROFILE over global steps [2, 4) of a 4-step epoch: one window,
     opened at step 2 and closed before step 4, its trace a JSON file under
