@@ -90,14 +90,41 @@ Phases, each of which must pass or the script exits non-zero:
               the command line: 2 epochs with validation (phase 12's checkpoint as
               AE_CHECKPOINT), --test_only of its checkpoint, --resume_from its epoch-1
               checkpoint, and the serving CLI with --config_file on the final .pth
+ 17. demo     the demo (`main --demo_input`): (a) the mel kernel at (1, 384000) (24 s,
+              DATASET.MAX_DEMO_LENGTH) with phase 3's gates, conv1 at (1, 80, 2401) with
+              phase 4's, the stem at (1, 82, 2401, 64) with phase 5's, each kernel's ms;
+              (b) phase 11's SDT-BP checkpoint, bf16, on clips of 4.27, 10.3 and 24 s
+              (64, 154, 360 frames): the dense demo runs each clip at its own length,
+              launches mel 1, conv1 1, stem 1 a clip, gives the same poses bit for bit
+              with DEMO.LENGTH_BUCKET_S 2.0 (the default, read and ignored) and 0, and is
+              held to an fp32 all-plain demo (rel L2 < 0.05, corr > 0.999, poses taken
+              about the speaker's mean pose); B1, B3 and B2 are held to their plain
+              versions with phases 3-5's gates on each clip's own audio, mel and conv1
+              output (widths 427, 1027, 2401), B2's largest distance from the fp32
+              result within twice the plain bf16 version's (post-IN values reach 8-19
+              on a real clip, where a bf16 ulp is 0.0625-0.125);
+              (c) on the 10.3 and 24 s clips the windowed demo (DEMO.WINDOWED, 4 and 11
+              windows as one batch) launches each kernel once and is held to its fp32
+              all-plain version, and the three kernels to their plain versions on its
+              window batch; a streaming session fed 0.5 s chunks through
+              build_serving_fn launches each kernel once a window and is held to the
+              windowed demo at rel L2 < 0.02 (B = 1 against B = n: cuDNN may round
+              otherwise), which a session with an 8-frame halo must fail; ms a clip and
+              the real-time factor of every route and length;
+              (d) through the command line, SDT-BP on a directory of three wavs (one at
+              44.1 kHz, float) with DEMO.MULTIPLE 3 (nine archives); through
+              trainer.demo, which the command line calls, s2g from phase 16's checkpoint,
+              SDT-VAE from phase 14's, Pose2Pose decoding DEMO.CODE_PATH;
+              (e) whether `import cv2` works and ffmpeg is on PATH (facts, not gates)
 Then one JSON line with every kernel's error, times, bound and launches (the mel
 kernel's count over the serving requests, the train phase's steps, the eval
 batches, phase 15's SDT-BP loops, whose CUDA graphs count a launch where it
 was captured, not where it was replayed, and phase 16's requests, steps and
-loops; conv1's and the stem's over the serving requests and the eval batches),
-the card's name and power limit, a JSON line with the train step's time, one
-with phases 12-14's numbers, one with phase 15's and one with phase 16's, and
-last {"ok": true, "device": {...}}.
+loops, and phase 17's demo routes; conv1's and the stem's over the serving
+requests, the eval batches and the demo routes), the card's name and power
+limit, a JSON line with the train step's time, one with phases 12-14's
+numbers, one with phase 15's, one with phase 16's and one with phase 17's,
+and last {"ok": true, "device": {...}}.
 
 Times are CUDA-event means over repeated calls after a warm-up; inputs rotate over
 three copies so that each call reads from device memory rather than the 50 MB L2.
@@ -105,6 +132,7 @@ three copies so that each call reads from device memory rather than the 50 MB L2
 
 from __future__ import annotations
 
+import collections
 import glob
 import json
 import os
@@ -1239,6 +1267,385 @@ def main() -> None:
                         "train_launches": s_train, "graphed": s_graph,
                         "cli_test_metrics": c_s2g_test["metrics"], "cli_seconds": s_cli_s}}
 
+
+    # ---- 17. the demo: dense, windowed, streaming, CLI -----------------------------
+    from scipy.io import wavfile
+
+    from speechdrivestemplates_tpu_torch.config import s2g as s2g_preset
+    t17 = time.perf_counter()
+    from speechdrivestemplates_tpu_torch.datasets.gesture_dataset import GestureDataset, collate
+    from speechdrivestemplates_tpu_torch.ops.longform import window_audio
+    from speechdrivestemplates_tpu_torch.ops.pose import get_final_results
+    from speechdrivestemplates_tpu_torch.utils.audio import load_wav
+    from speechdrivestemplates_tpu_torch.utils.streaming import StreamingPoseSession
+    from speechdrivestemplates_tpu_torch.utils.weights import load_reference_pth
+
+    def in_counts():
+        return {n: kernels.LAUNCHES.get(n, 0) for n in ("mel", "conv1", "stem")}
+
+    # (a) the kernels at the demo's widest shapes, 24 s of audio: B1 on (1, 384000),
+    # B3 on (1, 80, 2401), B2 on B3's (1, 82, 2401, 64) bf16 output
+    DL = 384000
+    DW1 = DL // 160 + 1
+    d_audios = [dev_randn(1, DL, scale=0.1) for _ in range(3)]
+    d_mel_err, d_quiet_rel, _ = check_mel(d_audios[0], f"demo clip (1, {DL})")
+    report["mel"]["max_abs_err"] = max(report["mel"]["max_abs_err"], d_mel_err)
+    d_mels = [M.mel_spectrogram_kernel(a) for a in d_audios]
+    d_conv1_err = 0.0
+    for kind, mel in (("normal", dev_randn(1, 80, DW1)), ("offset", dev_randn(1, 80, DW1) + 100)):
+        ref1 = C1.conv1_in_plain(mel, w1, 0.2, torch.float32)
+        k1 = C1.conv1_in_kernel(mel, w1, 0.2, torch.float32)
+        k1b = C1.conv1_in_kernel(mel, w1, 0.2, bf)
+        torch.cuda.synchronize()
+        e = (k1 - ref1).abs().max().item()
+        check(k1.shape == (1, C1.ROWS, DW1, 64) and torch.allclose(k1, ref1, rtol=2e-5, atol=2e-5),
+              f"conv1 fp32 kernel vs plain at (1, 80, {DW1}), {kind} mel: max abs err {e}")
+        check(all(not t[:, 0].any() and not t[:, -1].any() for t in (k1, k1b)),
+              f"conv1 rows 0 and 81 are not zero at (1, 80, {DW1})")
+        rel16 = ((k1b.float() - ref1).abs().mean() / ref1.abs().mean()).item()
+        check(rel16 < 2e-2, f"conv1 bf16 kernel at (1, 80, {DW1}), {kind} mel: mean rel {rel16}")
+        d_conv1_err = max(d_conv1_err, e)
+    report["conv1"]["max_abs_err"] = max(report["conv1"]["max_abs_err"], d_conv1_err)
+    ref32 = S.stem_plain(d_mels[0], w1, w2, w3, 0.2, torch.float32)
+    k32 = S.stem_kernel(d_mels[0], w1, w2, w3, 0.2, torch.float32)
+    k16 = S.stem_kernel(d_mels[0], w1, w2, w3, 0.2, bf).float()
+    torch.cuda.synchronize()
+    d_whole_err = (k32 - ref32).abs().max().item()
+    check(k32.shape == (1, 40, S.stem_dims(DW1)[1], 128)
+          and torch.allclose(k32, ref32, rtol=2e-4, atol=2e-5),
+          f"stem fp32 kernels vs plain at (1, 80, {DW1}): max abs err {d_whole_err}")
+    e16 = (k16 - ref32).abs().flatten()
+    d_q99 = torch.quantile(e16[:: max(1, e16.numel() // 4_000_000)], 0.99).item()
+    check(d_q99 < 0.05 and e16.mean().item() < 0.02,
+          f"stem bf16 kernels vs fp32 plain at (1, 80, {DW1}): p99 {d_q99}")
+    d_y1s = [C1.conv1_in_kernel(m, w1, 0.2, bf) for m in d_mels]
+    t16 = S.stem_tail_kernel(d_y1s[0], w2, w3, 0.2, bf).float()
+    tref = S.stem_tail_plain(d_y1s[0], w2, w3, 0.2, bf).float()
+    torch.cuda.synchronize()
+    e16 = (t16 - tref).abs().flatten()
+    d_stem_err = e16.max().item()
+    d_tail_q99 = torch.quantile(e16[:: max(1, e16.numel() // 4_000_000)], 0.99).item()
+    check(d_tail_q99 < 0.05 and e16.mean().item() < 0.02 and d_stem_err < 0.1,
+          f"stem kernel bf16 vs plain bf16 at (1, 82, {DW1}, 64): p99 {d_tail_q99}, "
+          f"mean {e16.mean().item()}, max {d_stem_err}")
+    report["stem"]["max_abs_err"] = max(report["stem"]["max_abs_err"], d_stem_err)
+    DH2, DW2 = S.stem_dims(DW1)
+    d_bounds = {  # as the kernels line's bounds, at the 24 s shapes
+        "mel": bound_ms(4.0 * (DL + 80 * DW1), 3 * 2.0 * DW1 * (400 * 512 + 256 * 80), "bf16"),
+        "conv1": bound_ms(4.0 * 80 * DW1 + 4.0 * w1.numel() + 2.0 * C1.ROWS * DW1 * 64,
+                          2.0 * 80 * DW1 * 64 * 9, "fp32"),
+        "stem": bound_ms(2.0 * 80 * DW1 * 64 + 2.0 * (w2.numel() + w3.numel())
+                         + 2.0 * DH2 * DW2 * 128,
+                         2.0 * DH2 * DW2 * (64 * 64 * 16 + 128 * 64 * 9), "bf16")}
+    demo_kernels = {
+        "mel_1x384000": {"ms": cuda_ms(M.mel_spectrogram_kernel, [(a,) for a in d_audios]),
+                         "plain_ms": cuda_ms(M.mel_spectrogram_plain, [(a,) for a in d_audios]),
+                         "max_abs_err": d_mel_err, "quiet_max_rel_err": d_quiet_rel,
+                         "bound_ms": d_bounds["mel"][0], "bound_by": d_bounds["mel"][1]},
+        "conv1_1x80x2401": {"ms": cuda_ms(C1.conv1_in_kernel, [(m, w1, 0.2, bf) for m in d_mels]),
+                            "plain_ms": cuda_ms(C1.conv1_in_plain,
+                                                [(m, w1, 0.2, bf) for m in d_mels], 5),
+                            "max_abs_err": d_conv1_err, "bound_ms": d_bounds["conv1"][0],
+                            "bound_by": d_bounds["conv1"][1]},
+        "stem_1x82x2401x64": {"ms": cuda_ms(S.stem_tail_kernel,
+                                            [(y, w2, w3, 0.2, bf) for y in d_y1s], 10),
+                              "plain_ms": cuda_ms(S.stem_tail_plain,
+                                                  [(y, w2, w3, 0.2, bf) for y in d_y1s], 10),
+                              "max_abs_err": d_stem_err, "fp32_whole_max_abs_err": d_whole_err,
+                              "bf16_vs_fp32_p99": d_q99, "bf16_tail_p99": d_tail_q99,
+                              "bound_ms": d_bounds["stem"][0], "bound_by": d_bounds["stem"][1]}}
+    print(f"[demo-kernels] {card}: mel kernel at (1, {DL}) max abs err {d_mel_err:.3e}, quiet "
+          f"half max rel {d_quiet_rel:.3e}, {demo_kernels['mel_1x384000']['ms']:.4f} ms (plain "
+          f"{demo_kernels['mel_1x384000']['plain_ms']:.4f}); conv1 at (1, 80, {DW1}) fp32 max "
+          f"abs err {d_conv1_err:.3e} (normal and offset mels), bf16 "
+          f"{demo_kernels['conv1_1x80x2401']['ms']:.4f} ms (plain "
+          f"{demo_kernels['conv1_1x80x2401']['plain_ms']:.4f}); stem at (1, 82, {DW1}, 64): "
+          f"fp32 kernels max abs err {d_whole_err:.3e}, bf16 vs fp32 p99 {d_q99:.4f}, bf16 vs "
+          f"plain bf16 max {d_stem_err:.3e} p99 {d_tail_q99:.4f}, "
+          f"{demo_kernels['stem_1x82x2401x64']['ms']:.4f} ms (plain "
+          f"{demo_kernels['stem_1x82x2401x64']['plain_ms']:.4f})", flush=True)
+    del d_audios, d_mels, d_y1s, ref32, k32, k16, t16, tref, e16
+
+    # (b) the dense demo of phase 11's SDT-BP checkpoint, bf16, on three clips
+    demo_dir = os.path.join(work, "demo")
+    shutil.rmtree(demo_dir, ignore_errors=True)
+    os.makedirs(os.path.join(demo_dir, "wavs"))
+
+    def write_wav(path, seconds, sr=16000, seed=0, dtype="int16"):
+        r = np.random.RandomState(seed)
+        t = np.arange(int(seconds * sr)) / sr
+        x = (0.1 * np.sin(2 * np.pi * (140 + 20 * seed) * t) * (1 + np.sin(2 * np.pi * 2.5 * t))
+             + 0.05 * r.randn(len(t)))
+        wavfile.write(path, sr, (x * 32767).astype(np.int16) if dtype == "int16"
+                      else x.astype(np.float32))
+        return path
+
+    clips = {s: write_wav(os.path.join(demo_dir, f"clip_{s}.wav"), s, seed=i)
+             for i, s in enumerate((4.27, 10.3, 24.0))}
+    dopts = ["TEST.SAVE_VIDEO", "False", "DEMO.CODE_INDEX", "0"]
+
+    def demo_state(precision="bf16", *extra):
+        st = Voice2PoseTrainState(apply_overrides(sdt_bp(precision=precision),
+                                                  [*dopts, *extra]), None, dev)
+        st.load_pth(ckpt)
+        return st
+
+    def demo_batch(path):
+        return collate([GestureDataset("unused", "oliver", sdt_bp(), split="demo",
+                                       demo_input=path)[0]])
+
+    batches = {s: demo_batch(p) for s, p in clips.items()}
+    frames = {s: int(b["num_frames"][0]) for s, b in batches.items()}
+    check(frames == {4.27: 64, 10.3: 154, 24.0: 360}, f"demo clip frames {frames}")
+
+    def motion_rel(got, ref, batch):
+        """rel L2 and correlation of pixel-space poses, both taken about the
+        speaker's mean pose (the final poses of a zero prediction), so that the
+        shared mean does not hide an error of the motion."""
+        stat = {k: v.to(dev) for k, v in batch["speaker_stat"].items()}
+        base = get_final_results(torch.zeros_like(ref), stat["mean"], stat["std"],
+                                 stat["scale_factor"], True, 121)
+        a, b = (got - base).double(), (ref - base).double()
+        rel = (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
+        corr = torch.corrcoef(torch.stack([a.flatten(), b.flatten()]))[0, 1].item()
+        return rel, corr
+
+    def motion_gate(got, ref, batch, what, rel_max=0.05):
+        rel, corr = motion_rel(got, ref, batch)
+        check(got.shape == ref.shape and bool(torch.isfinite(got).all()) and rel < rel_max
+              and corr > 0.999, f"{what}: shape {tuple(got.shape)}, rel L2 {rel} (gate "
+                                f"{rel_max}), corr {corr}")
+        return rel, corr
+
+    def timed(fn, reps):
+        """Host ms per call, the card synchronized, after one warm-up call."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    routes, demo_launches = {}, collections.Counter()
+    held = collections.defaultdict(list)  # the kernels against plain at the routes' shapes
+
+    def record(route, sec, ms, **kw):
+        routes.setdefault(route, {})[f"{sec}s"] = dict(ms_per_clip=ms, real_time_factor=sec / (
+            ms / 1e3), **kw)
+
+    def hold_route_kernels(audio, sw, what):
+        """B1, B3 and B2 once each on a route's own input (``audio`` as the
+        route feeds B1, its mel, conv1's bf16 output), against their plain
+        versions with phases 3-5's gates; ``sw``, the generator's stem weights.
+        Outside the counted runs."""
+        w1_, w2_, w3_ = (w.detach() for w in sw)
+        e_mel, _, _ = check_mel(audio, what)
+        mel = M.mel_spectrogram_kernel(audio)
+        k1 = C1.conv1_in_kernel(mel, w1_, 0.2, torch.float32)
+        ref1 = C1.conv1_in_plain(mel, w1_, 0.2, torch.float32)
+        y1 = C1.conv1_in_kernel(mel, w1_, 0.2, bf)
+        tk = S.stem_tail_kernel(y1, w2_, w3_, 0.2, bf).float()
+        tp = S.stem_tail_plain(y1, w2_, w3_, 0.2, bf).float()
+        t32 = S.stem_tail_plain(y1.float(), w2_, w3_, 0.2, torch.float32)
+        torch.cuda.synchronize()
+        e1 = (k1 - ref1).abs().max().item()
+        check(torch.allclose(k1, ref1, rtol=2e-5, atol=2e-5),
+              f"conv1 fp32 kernel vs plain on {what}, mel {tuple(mel.shape)}: max abs err {e1}")
+        rel16 = ((y1.float() - ref1).abs().mean() / ref1.abs().mean()).item()
+        check(rel16 < 2e-2, f"conv1 bf16 kernel on {what}: mean rel {rel16}")
+        e = (tk - tp).abs().flatten()
+        q99 = torch.quantile(e[:: max(1, e.numel() // 4_000_000)], 0.99).item()
+        # phase 5's max gate (0.1) is a few bf16 ulps of O(1) values; a real clip's
+        # post-IN values reach 8-19, where one ulp is 0.0625-0.125, and both bf16
+        # versions part from the fp32 one by 0.13-0.19 there, the kernel's worst
+        # element 0.92-1.34x the plain bf16 version's (PERF.md): the kernel's
+        # largest distance from fp32 is held within twice the plain bf16 one's
+        k_far, p_far = (tk - t32).abs().max().item(), (tp - t32).abs().max().item()
+        check(q99 < 0.05 and e.mean().item() < 0.02 and k_far <= 2.0 * p_far,
+              f"stem kernel bf16 vs plain bf16 on {what}, {tuple(y1.shape)}: p99 {q99}, "
+              f"mean {e.mean().item()}, max {e.max().item()}; max from fp32: kernel {k_far}, "
+              f"plain bf16 {p_far}")
+        held["stem_far_from_fp32_kernel_vs_plain"].append((k_far, p_far))
+        held["shapes"].append(f"{what}: audio {tuple(audio.shape)}, y1 {tuple(y1.shape)}")
+        for n, v in (("mel", e_mel), ("conv1", e1), ("stem", e.max().item())):
+            report[n]["max_abs_err"] = max(report[n]["max_abs_err"], v)
+            held[f"{n}_max_abs_err"].append(v)
+
+    # DEMO.LENGTH_BUCKET_S is read and ignored: the default (2.0) and 0 give one route
+    dense, dense0 = demo_state("bf16"), demo_state("bf16", "DEMO.LENGTH_BUCKET_S", "0")
+    dense32 = demo_state("fp32")
+    stem_w = [dense.generator.audio_encoder.layers()[i].conv.weight for i in range(3)]
+    for sec, b in batches.items():
+        kernels.reset_launch_counts()
+        out = V2P.demo_step(dense, b)["poses_pred_batch"]
+        torch.cuda.synchronize()
+        n_dense = in_counts()
+        check(n_dense == {"mel": 1, "conv1": 1, "stem": 1},
+              f"dense demo of {sec} s launched {n_dense}")
+        demo_launches.update(n_dense)
+        check(torch.equal(out, V2P.demo_step(dense0, b)["poses_pred_batch"]),
+              f"dense demo of {sec} s: DEMO.LENGTH_BUCKET_S 2.0 and 0 differ")
+        with torch.inference_mode():
+            ref = V2P.demo_step(dense32, b, plain=True)["poses_pred_batch"]
+        gate = motion_gate(out, ref, b, f"dense demo of {sec} s vs fp32 plain")
+        check(out.shape == (1, frames[sec], 2, 121), f"demo poses {out.shape}")
+        hold_route_kernels(b["audio"].to(dev), stem_w, f"the dense demo's {sec} s clip")
+        record("dense", sec, timed(lambda: V2P.demo_step(dense, b), 5),
+               rel_l2_vs_fp32_plain=gate[0], corr=gate[1])
+        print(f"[demo-dense] {sec} s ({frames[sec]} frames): launched {n_dense}, vs fp32 plain "
+              f"rel L2 {gate[0]:.4e} corr {gate[1]:.6f}, DEMO.LENGTH_BUCKET_S 2.0 = 0 bit for "
+              f"bit; {routes['dense'][f'{sec}s']['ms_per_clip']:.3f} ms a clip", flush=True)
+    del dense32, dense0
+
+    # (c) windowed and streaming on the 10.3 s and 24 s clips
+    windowed = demo_state("bf16", "DEMO.WINDOWED", "True")
+    windowed32 = demo_state("fp32", "DEMO.WINDOWED", "True")
+    fn, _ = build_serving_fn(windowed.cfg, load_reference_pth(ckpt), device="cuda")
+    code = windowed.clips_code[0:1].detach()
+    # streaming runs B = 1 windows, the windowed demo one B = n batch: cuDNN may pick
+    # other algorithms for the two batch sizes, so the two bf16 forwards round
+    # otherwise. Runs on the H100 read rel L2 2.4e-3 and 5.3e-3 (PERF.md); a session whose
+    # crossfade differs (halo 8 frames against the demo's 16) must read above the gate
+    STREAM_REL_L2 = 2e-2
+    stream_gate = {}
+
+    def stream(audio, halo=16):
+        sess = StreamingPoseSession(lambda a: fn(a, code).float().cpu().numpy(),
+                                    halo_frames=halo)
+        got = [sess.feed(audio[i: i + 8000]) for i in range(0, len(audio), 8000)]
+        return np.concatenate([g for g in got + [sess.flush()] if g.size])
+
+    for sec in (10.3, 24.0):
+        b = batches[sec]
+        n_win = -(-(frames[sec] - 64) // 32) + 1
+        kernels.reset_launch_counts()
+        out_win = V2P.demo_step(windowed, b)["poses_pred_batch"].to(dev)
+        torch.cuda.synchronize()
+        n = in_counts()
+        check(n == {"mel": 1, "conv1": 1, "stem": 1},
+              f"windowed demo of {sec} s ({n_win} windows) launched {n}")
+        demo_launches.update(n)
+        with torch.inference_mode():
+            ref = V2P.demo_step(windowed32, b, plain=True)["poses_pred_batch"].to(dev)
+        gate_win = motion_gate(out_win, ref, b, f"windowed demo of {sec} s vs fp32 plain")
+        windows, _ = window_audio(np.asarray(b["audio"][0]), frames[sec], 64, 16)
+        check(len(windows) == n_win, f"{sec} s: {len(windows)} windows, expected {n_win}")
+        hold_route_kernels(torch.from_numpy(windows).to(dev), stem_w,
+                           f"the windowed demo's {n_win} windows of {sec} s")
+        record("windowed", sec, timed(lambda: V2P.demo_step(windowed, b), 5), windows=n_win,
+               rel_l2_vs_fp32_plain=gate_win[0], corr=gate_win[1])
+
+        # the wav's own samples: the item's audio is snapped to whole frames,
+        # and parse_audio_length of a snapped length can give one frame less
+        audio = load_wav(clips[sec])
+        kernels.reset_launch_counts()
+        streamed = torch.from_numpy(stream(audio))[None].to(dev)
+        n = in_counts()
+        check(n == {"mel": n_win, "conv1": n_win, "stem": n_win},
+              f"streaming {sec} s in 0.5 s chunks ({n_win} windows) launched {n}")
+        demo_launches.update(n)
+        s_rel, s_corr = motion_gate(streamed, out_win, b, f"streaming {sec} s vs windowed",
+                                    STREAM_REL_L2)
+        s_max = (streamed - out_win).abs().max().item()
+        stream_gate[f"{sec}s"] = dict(rel_l2=s_rel, corr=s_corr, max_abs_px=s_max,
+                                      bit_identical=bool(torch.equal(streamed, out_win)),
+                                      gate_rel_l2=STREAM_REL_L2)
+        if sec == 24.0:  # the gate sees a crossfade fault: halo 8 frames, not 16
+            hold_route_kernels(torch.from_numpy(windows[:1]).to(dev), stem_w,
+                               "a streaming window (B = 1)")
+            bad = torch.from_numpy(stream(audio, halo=8))[None].to(dev)
+            bad_rel = motion_rel(bad, out_win, b)[0]
+            check(bad.shape == out_win.shape and bad_rel > STREAM_REL_L2,
+                  f"a halo-8 session vs the windowed demo reads rel L2 {bad_rel}, within the "
+                  f"streaming gate {STREAM_REL_L2}")
+            stream_gate["planted_halo8_rel_l2"] = bad_rel
+        record("streaming", sec, timed(lambda: stream(audio), 2), windows=n_win, chunk_s=0.5,
+               **stream_gate[f"{sec}s"])
+        print(f"[demo-windowed] {sec} s: {n_win} windows in one batch launched mel 1, conv1 1, "
+              f"stem 1, vs fp32 plain rel L2 {gate_win[0]:.4e} corr {gate_win[1]:.6f}, "
+              f"{routes['windowed'][f'{sec}s']['ms_per_clip']:.3f} ms; streaming in 0.5 s "
+              f"chunks launched {n_win} each, vs windowed rel L2 {s_rel:.3e} (gate "
+              f"{STREAM_REL_L2}) corr {s_corr:.6f}, max {s_max:.3e} px, bit for bit "
+              f"{stream_gate[f'{sec}s']['bit_identical']}, "
+              f"{routes['streaming'][f'{sec}s']['ms_per_clip']:.3f} ms", flush=True)
+    print(f"[demo-held] {card}: the kernels against plain on the routes' own inputs: "
+          f"{held['shapes']}; max abs err mel {max(held['mel_max_abs_err']):.3e}, conv1 "
+          f"{max(held['conv1_max_abs_err']):.3e}, stem {max(held['stem_max_abs_err']):.3e}; "
+          f"a halo-8 session reads rel L2 {stream_gate['planted_halo8_rel_l2']:.4e}",
+          flush=True)
+    del windowed, windowed32, dense, fn
+    for name, n in demo_launches.items():
+        report[name]["launches"] += n
+
+    # (d) the command line on a directory (SDT-BP); then s2g, SDT-VAE and Pose2Pose
+    # through trainer.demo, the function the command line calls, in this process
+    # (a process costs the demo's time many times over in start-up)
+    wav_dir = os.path.join(demo_dir, "wavs")
+    for i, (sec, sr, dtype) in enumerate([(3.0, 16000, "int16"), (5.1, 44100, "float32"),
+                                          (6.9, 16000, "int16")]):
+        write_wav(os.path.join(wav_dir, f"talk{i}.wav"), sec, sr, 10 + i, dtype)
+    druns = os.path.join(demo_dir, "runs")
+    t0 = time.perf_counter()
+
+    def check_archives(out, n, what):
+        check(len(out["npz"]) == n, f"{what}: {out}")
+        for p in out["npz"]:
+            with np.load(p) as z:
+                poses = z["poses_pred_batch"]
+            check(poses.ndim == 4 and poses.shape[0] == 1 and poses.shape[2:] == (2, 121)
+                  and bool(np.isfinite(poses).all()), f"{what} archive {p}: {poses.shape}")
+
+    c_demo = main_cli("--tag", "demo_bp", "--demo_input", wav_dir, "--checkpoint", ckpt,
+                      "SYS.OUTPUT_DIR", druns, "TEST.SAVE_VIDEO", "False", "DEMO.MULTIPLE", "3",
+                      "DEMO.CODE_INDEX", "0", "DEMO.CODE_INDEX_B", "1", "DEMO.NUM_SAMPLES", "3")
+    check_archives(c_demo, 9, "SDT-BP demo CLI")
+    check(sorted(c_demo["num_frames"]) == [64, 76, 103]
+          and sorted(os.path.basename(p) for p in c_demo["npz"])
+          == [f"epoch0-DEMO-step{t}-{i}.npz" for t in (1, 2, 3) for i in range(3)],
+          f"SDT-BP demo CLI line: {c_demo}")
+    demo_cli_s = time.perf_counter() - t0
+    from speechdrivestemplates_tpu_torch.config import sdt_vae
+
+    code_path = os.path.join(demo_dir, "codes.npz")
+    np.savez(code_path, v=rng.randn(2, 32))
+    common_demo = ["SYS.OUTPUT_DIR", druns, "TEST.SAVE_VIDEO", "False"]
+    d_s2g = trainer.demo(apply_overrides(s2g_preset(), list(common_demo)),
+                         c_s2g_resumed["checkpoint"], clips[10.3], "demo_s2g", dev)
+    check_archives(d_s2g, 1, "s2g demo")
+    with np.load(d_s2g["npz"][0]) as z:
+        check(z["poses_pred_batch"].shape == (1, frames[10.3], 2, 121)
+              and "condition_code" not in z.files, f"s2g demo archive: {z.files}")
+    d_vae = trainer.demo(apply_overrides(sdt_vae(), [*common_demo,
+                                                     "VOICE2POSE.POSE_ENCODER.AE_CHECKPOINT",
+                                                     ae_chain]),
+                         c_vae["checkpoint"], clips[4.27], "demo_vae", dev)
+    check_archives(d_vae, 1, "SDT-VAE demo")
+    d_p2p = trainer.demo(apply_overrides(pose2pose(), [*common_demo, "DEMO.CODE_PATH", code_path,
+                                                       "DEMO.MULTIPLE", "2"]),
+                         ae_chain, clips[4.27], "demo_p2p", dev)
+    check_archives(d_p2p, 2, "Pose2Pose demo")
+    demo_fn_s = time.perf_counter() - t0 - demo_cli_s
+    print(f"[demo-cli] SDT-BP through the command line on a directory of 3 wavs (one 44.1 kHz "
+          f"float) x 3 codes: 9 archives of {sorted(c_demo['num_frames'])} frames, "
+          f"{demo_cli_s:.1f} s; trainer.demo of s2g on 10.3 s, SDT-VAE on 4.27 s, Pose2Pose "
+          f"decoding DEMO.CODE_PATH x 2: {demo_fn_s:.1f} s", flush=True)
+
+    # (e) what the video slice will need on this host (facts, not gates)
+    demo_line = {"demo": {"card": card, "routes": routes, "kernels_at_24s": demo_kernels,
+                          "kernels_on_route_inputs": dict(held),
+                          "streaming_vs_windowed": stream_gate,
+                          "launches": dict(demo_launches), "cli_seconds": demo_cli_s,
+                          "trainer_demo_seconds": demo_fn_s,
+                          "cv2_importable": subprocess.run(
+                              [sys.executable, "-c", "import cv2"], capture_output=True,
+                              timeout=120).returncode == 0,
+                          "ffmpeg_on_path": shutil.which("ffmpeg") is not None}}
+    demo_line["demo"]["phase_seconds"] = time.perf_counter() - t17
+    print(f"[demo] cv2 importable: {demo_line['demo']['cv2_importable']}; ffmpeg on PATH: "
+          f"{demo_line['demo']['ffmpeg_on_path']}; phase 17 took "
+          f"{demo_line['demo']['phase_seconds']:.1f} s", flush=True)
+
     # ---- summary -----------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1249,6 +1656,7 @@ def main() -> None:
     print(json.dumps(chain_line))
     print(json.dumps({"graphed": graph_line}))
     print(json.dumps(s2g_line))
+    print(json.dumps(demo_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

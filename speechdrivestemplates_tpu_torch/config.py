@@ -88,6 +88,7 @@ class DatasetConfig:
     AUDIO_LENGTH: int = 68267
     AUDIO_SR: int = 16000
     FPS: int = 15
+    MAX_DEMO_LENGTH: Optional[int] = 24  # seconds: a longer demo wav is cropped (seeded)
     CACHING: bool = False  # the split read once into SoA arrays, batches gathered from them
     DEVICE_CACHE: str = "auto"  # 'auto' | 'on' (raise when it cannot engage) | 'off'
     DEVICE_CACHE_MAX_MB: int = 2048  # the train set staged on the card up to this size
@@ -123,8 +124,16 @@ class TestConfig:
 
 @dataclass
 class DemoConfig:
+    MULTIPLE: int = 1  # passes over each clip, the code moved from row A towards row B
+    NUM_SAMPLES: int = 1  # wavs sampled from a --demo_input directory
     CODE_INDEX: Optional[int] = None  # a fixed bank row as every eval code
     CODE_INDEX_B: Optional[int] = None  # the row it is interpolated towards
+    CODE_PATH: Optional[str] = None  # Pose2Pose: an npz whose "v" rows are decoded
+    WINDOWED: bool = False  # a clip longer than WINDOW_FRAMES runs as crossfaded windows
+    WINDOW_FRAMES: int = 64
+    HALO_FRAMES: int = 16  # overlap cropped and crossfaded on each side of a window
+    SEQUENCE_PARALLEL: bool = False  # not ported: ROADMAP.md queue A, item 14
+    LENGTH_BUCKET_S: float = 2.0  # read for the JAX YAMLs and ignored: clips run at their length
 
 
 @dataclass

@@ -1,10 +1,9 @@
-"""The train and val splits of a speaker directory, and the train schedule.
+"""The train, val and demo splits, and the train schedule.
 
-Counterpart of the JAX package's ``datasets/gesture_dataset.py`` (its
-``'train'`` and ``'val'`` splits). A speaker directory holds one npz per clip
-and ``processed_137.csv``, whose ``dataset`` column marks the train rows
-(``'train'``) and the val rows (``'dev'``). An item is the
-clip's audio cropped or zero-padded to whole video frames, its first
+Counterpart of the JAX package's ``datasets/gesture_dataset.py``. A speaker
+directory holds one npz per clip and ``processed_137.csv``, whose ``dataset``
+column marks the train rows (``'train'``) and the val rows (``'dev'``). An
+item is the clip's audio cropped or zero-padded to whole video frames, its first
 NUM_FRAMES poses taken to 121 keypoints, re-rooted per part and z-scored with
 the speaker's parted statistics, its row index in the split (``clip_index``,
 for the train split the row of the clip-code bank) and those statistics.
@@ -12,6 +11,16 @@ With DATASET.HIERARCHICAL_POSE False (s2g) the poses stay global, are
 z-scored with the speaker's global statistics, which ``speaker_stat`` then
 holds, and the item carries them again as ``speaker_stat_global`` (the FGD
 encoder's re-normalization reads that key, as in JAX).
+
+The demo split (``demo_input``: a wav path, a space-separated list of paths,
+or a directory, whose sorted listing is shuffled by
+``numpy.random.default_rng(SYS.SEED)`` and cut to DEMO.NUM_SAMPLES wavs) has
+no poses: an item is the wav at 16 kHz (``utils.audio.load_wav``), cropped to
+DATASET.MAX_DEMO_LENGTH seconds at a start drawn from
+``default_rng(SYS.SEED + index)``, snapped to whole frames, or zero-padded to
+NUM_FRAMES frames where it is shorter (the UNet's downsampling needs one
+window); its frame count ``num_frames``, its index and the speaker's
+statistics.
 
 ``EpochBatches`` is the JAX loader's train schedule, a ``RandomState(seed +
 epoch)`` shuffle of the row indices in full batches only, so a port run and a
@@ -35,35 +44,53 @@ import numpy as np
 import torch
 
 from ..ops import pose as pose_ops
-from ..utils.audio import crop_pad_audio, parse_audio_length
+from ..utils.audio import crop_pad_audio, load_wav, parse_audio_length
 from .speakers_stat import get_speaker_stat
 
 
 SPLIT_ROWS = {"train": "train", "val": "dev"}
 
 
-class GestureDataset:
-    """The ``split`` ('train' or 'val') clips of ``root_dir/<speaker>``
-    (``'a+b'`` joins speakers)."""
+def demo_clips(demo_input: str, seed: int, num_samples: int) -> List[str]:
+    """The wav paths of ``--demo_input``, as the JAX demo split lists them."""
+    if len(demo_input.split()) == 1 and os.path.isdir(demo_input):
+        files = sorted(os.listdir(demo_input))
+        np.random.default_rng(seed).shuffle(files)
+        files = [f for f in files[:1000] if f.split(".")[-1] == "wav"][:num_samples]
+        return [os.path.join(demo_input, f) for f in files]
+    return demo_input.split()
 
-    def __init__(self, root_dir: str, speaker: str, cfg, split: str = "train"):
+
+class GestureDataset:
+    """The ``split`` ('train', 'val' or 'demo') clips: of ``root_dir/<speaker>``
+    (``'a+b'`` joins speakers), or of ``demo_input`` for the demo."""
+
+    def __init__(self, root_dir: str, speaker: str, cfg, split: str = "train",
+                 demo_input: Optional[str] = None):
         if speaker is None:
             raise ValueError("DATASET.SPEAKER is not set")
-        if split not in SPLIT_ROWS:
-            raise ValueError(f"unknown split {split!r}: 'train' or 'val'")
+        if split not in (*SPLIT_ROWS, "demo"):
+            raise ValueError(f"unknown split {split!r}: 'train', 'val' or 'demo'")
         self.cfg = cfg.DATASET
+        self.seed = cfg.SYS.SEED
         self.split = split
+        self.speaker = speaker.replace("+", " ").split()[0]
         self._cache: Dict[int, Dict[str, object]] = {}
         self._soa: Optional[Dict[str, object]] = None
-        self.clips: List[Dict[str, str]] = []
-        for sp in speaker.replace("+", " ").split():
-            sp_dir = os.path.join(root_dir, sp)
-            path = os.path.join(sp_dir, "processed_137.csv")
-            if not os.path.exists(path):
-                raise FileNotFoundError(f"No csv file: {path}")
-            with open(path, newline="") as f:
-                self.clips += [dict(row, _dir=sp_dir) for row in csv.DictReader(f)
-                               if row["dataset"] == SPLIT_ROWS[split]]
+        self.clips: List = []
+        if split == "demo":
+            if demo_input is None:
+                raise ValueError("the demo split needs demo_input")
+            self.clips = demo_clips(demo_input, cfg.SYS.SEED, cfg.DEMO.NUM_SAMPLES)
+        else:
+            for sp in speaker.replace("+", " ").split():
+                sp_dir = os.path.join(root_dir, sp)
+                path = os.path.join(sp_dir, "processed_137.csv")
+                if not os.path.exists(path):
+                    raise FileNotFoundError(f"No csv file: {path}")
+                with open(path, newline="") as f:
+                    self.clips += [dict(row, _dir=sp_dir) for row in csv.DictReader(f)
+                                   if row["dataset"] == SPLIT_ROWS[split]]
         if self.cfg.SUBSET is not None:
             self.clips = self.clips[: self.cfg.SUBSET]
         self.audio_length, self.num_frames = parse_audio_length(
@@ -73,6 +100,8 @@ class GestureDataset:
         return len(self.clips)
 
     def __getitem__(self, idx: int) -> Dict[str, object]:
+        if self.split == "demo":
+            return self._demo_item(idx)
         if not self.cfg.CACHING:
             return self._load_item(idx)
         if self._soa is not None:
@@ -84,7 +113,7 @@ class GestureDataset:
     def materialize(self) -> Optional[Dict[str, object]]:
         """The split as SoA arrays, (N, ...) per key, built once (DATASET.CACHING
         only; None without it)."""
-        if not self.cfg.CACHING:
+        if not self.cfg.CACHING or self.split == "demo":
             return None
         if self._soa is None:
             self._soa = stack([self[i] for i in range(len(self))])
@@ -113,6 +142,27 @@ class GestureDataset:
         if not parted:
             item["speaker_stat_global"] = get_speaker_stat(clip["speaker"], 121, parted=False)
         return item
+
+    def _demo_item(self, idx: int) -> Dict[str, object]:
+        path, c = self.clips[idx], self.cfg
+        if path.split(".")[-1] not in ("wav", "m4a"):
+            raise ValueError(f"demo input {path!r}: a .wav (or, with ffmpeg, .m4a) file")
+        audio = load_wav(path, c.AUDIO_SR)
+        if c.MAX_DEMO_LENGTH is not None:
+            max_length = c.MAX_DEMO_LENGTH * c.AUDIO_SR
+            if len(audio) > max_length:
+                start = int(np.random.default_rng(self.seed + idx).integers(
+                    0, len(audio) - max_length))
+                audio = audio[start: start + max_length]
+        audio_length, num_frames = parse_audio_length(len(audio), c.AUDIO_SR, c.FPS)
+        if num_frames < c.NUM_FRAMES:
+            num_frames = c.NUM_FRAMES
+            audio_length = int(num_frames * c.AUDIO_SR / c.FPS)
+        return {"audio": crop_pad_audio(audio, audio_length).astype(np.float32),
+                "clip_index": np.int32(idx),
+                "speaker_stat": get_speaker_stat(self.speaker, 121,
+                                                 parted=c.HIERARCHICAL_POSE),
+                "num_frames": np.int32(num_frames)}
 
 
 def _take(tree, idx):

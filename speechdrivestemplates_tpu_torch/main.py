@@ -1,6 +1,7 @@
-"""Train or test with the port from a speaker directory:
+"""Train, test or run the demo with the port:
 
     python -m speechdrivestemplates_tpu_torch.main [--config_file configs/NAME.yaml]
+        [--demo_input WAV|"WAV WAV ..."|DIR --checkpoint CKPT.pth]
         [--test_only --checkpoint CKPT.pth] [--resume_from CKPT|RUN_DIR]
         [--pretrain_from CKPT.pth] [--device cuda|cpu] [--tag T] [KEY VALUE ...]
 
@@ -12,8 +13,13 @@ itself is not read), SDT-BP without one; the ``KEY VALUE`` overrides of
 TRAIN.NUM_EPOCHS 100``. Videos are
 not ported yet, so ``TRAIN.SAVE_VIDEO False`` is required, and ``TEST.SAVE_VIDEO
 False`` where the run evaluates (``--test_only``, or ``TRAIN.VALIDATE`` True).
-``--test_only`` evaluates ``--checkpoint`` on the val split instead of training
-(it takes precedence, as in the JAX ``main.py``). ``--resume_from`` continues
+``--demo_input`` runs the demo of ``--checkpoint`` on a wav, a space-separated
+list of wavs or a directory of them (DEMO.NUM_SAMPLES of it), at any length up
+to DATASET.MAX_DEMO_LENGTH seconds (``pipelines/trainer.py::demo``; it needs
+``TEST.SAVE_VIDEO False``, and for Pose2Pose DEMO.CODE_PATH);
+``--test_only`` evaluates ``--checkpoint`` on the val split instead of training.
+The demo takes precedence over the test, the test over training, as in the JAX
+``main.py``. ``--resume_from`` continues
 a run from a checkpoint the port wrote (a ``.pth`` with its resume file, its
 run directory or ``checkpoints/``), in that run's directory; ``--pretrain_from``
 (TRAIN.PRETRAIN_FROM) starts a new run from a ``.pth``'s weights with fresh
@@ -22,7 +28,8 @@ Runs on the card unless ``--device cpu`` is given, and raises without one.
 Prints one JSON line at the end: a training run's steps, last losses, last
 checkpoint (which the serving command line loads, given the same
 ``--config_file``; a code-less s2g checkpoint draws no code there) and the
-checkpoint it resumed from, or a test run's metrics. A training run ended by SIGTERM
+checkpoint it resumed from, a test run's metrics, or the demo's frame counts
+and result archives. A training run ended by SIGTERM
 (TRAIN.CHECKPOINT_ON_PREEMPT) exits 143 after its checkpoint.
 """
 
@@ -33,18 +40,21 @@ import json
 import logging
 
 from .config import apply_overrides, preset_for_config_file, sdt_bp
-from .pipelines.trainer import test, train
+from .pipelines.trainer import demo, test, train
 from .utils.device import resolve_device
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m speechdrivestemplates_tpu_torch.main",
-                                 description="train or test (the port, PyTorch/CUDA)")
+                                 description="train, test or demo (the port, PyTorch/CUDA)")
     ap.add_argument("--config_file", default="", metavar="FILE",
                     help="configs/<name>.yaml: the preset of that name (default SDT-BP)")
     ap.add_argument("--test_only", action="store_true",
                     help="evaluate --checkpoint on the val split instead of training")
-    ap.add_argument("--checkpoint", default=None, help="the .pth that --test_only evaluates")
+    ap.add_argument("--demo_input", default=None, metavar="WAV|DIR",
+                    help="run the demo of --checkpoint on this wav, list or directory")
+    ap.add_argument("--checkpoint", default=None,
+                    help="the .pth that --test_only evaluates or --demo_input runs")
     ap.add_argument("--resume_from", default=None,
                     help="continue training from this checkpoint (or run directory)")
     ap.add_argument("--pretrain_from", default=None,
@@ -55,10 +65,10 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    if args.test_only and not args.checkpoint:
-        ap.error("--test_only needs --checkpoint")
-    if args.checkpoint and not args.test_only:
-        ap.error("--checkpoint is read by --test_only only")
+    if (args.test_only or args.demo_input) and not args.checkpoint:
+        ap.error("--test_only and --demo_input need --checkpoint")
+    if args.checkpoint and not (args.test_only or args.demo_input):
+        ap.error("--checkpoint is read by --test_only and --demo_input only")
     try:
         cfg = preset_for_config_file(args.config_file) if args.config_file else sdt_bp()
         cfg = apply_overrides(cfg, args.opts)
@@ -68,7 +78,9 @@ def main(argv=None) -> dict:
         cfg.TRAIN.PRETRAIN_FROM = args.pretrain_from
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s [%(levelname)-0.5s] %(message)s")
-    if args.test_only:
+    if args.demo_input:
+        summary = demo(cfg, args.checkpoint, args.demo_input, args.tag, device)
+    elif args.test_only:
         summary = test(cfg, args.checkpoint, args.tag, device)
     else:
         summary = train(cfg, args.tag, device, args.resume_from)

@@ -8,13 +8,16 @@ L2), MultiStepLR as for Voice2Pose. After each train step the per-clip banks
 never optimized, take the step's mu and logvar at the batch's ``clip_index``.
 They persist in the checkpoint, whose encoder is Voice2Pose's frozen FGD
 encoder (``VOICE2POSE.POSE_ENCODER.AE_CHECKPOINT``) and whose ``clip_code_mu``
-is SDT-VAE's template bank. The step runs poses only: no kernel.
+is SDT-VAE's template bank. The step runs poses only: no kernel. The demo
+(``demo_step``) decodes an external code, ``np.load(DEMO.CODE_PATH)["v"][i] *
+10``, as the reference and the JAX package do.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..models import build_model
@@ -176,3 +179,26 @@ def eval_step(state: Pose2PoseTrainState, batch: Dict[str, object],
         losses.update(step_metrics(results["poses_pred_batch"], results["poses_gt_batch"],
                                    multiple))
     return losses, results
+
+
+@torch.no_grad()
+def demo_step(state: Pose2PoseTrainState, batch: Dict[str, object],
+              interpolation_coeff: Optional[float] = None) -> Dict[str, torch.Tensor]:
+    """Decode row ``int((DEMO.MULTIPLE - 1) * interpolation_coeff)`` of
+    DEMO.CODE_PATH's ``"v"`` array, times 10, into (1, NUM_FRAMES, 2, K)
+    pixel-space poses with the speaker statistics of the demo ``batch`` (its
+    audio is not read); returns them with the code as ``clip_code_mu`` and
+    zeros as ``clip_code_logvar``."""
+    cfg = state.cfg
+    if cfg.DEMO.CODE_PATH is None:
+        raise ValueError("the Pose2Pose demo decodes the codes of DEMO.CODE_PATH (an npz "
+                         "with a 'v' array): set it")
+    idx = int((cfg.DEMO.MULTIPLE - 1) * (interpolation_coeff or 0))
+    with np.load(cfg.DEMO.CODE_PATH) as z:
+        code = np.asarray(z["v"][idx] * 10, np.float32)
+    code = torch.from_numpy(code)[None].to(state.device)
+    b = _to({"speaker_stat": batch["speaker_stat"]}, state.device)
+    with eval_mode(state.ae):
+        pred, mu, logvar = state.ae(None, cfg.DATASET.NUM_FRAMES, code, generator=state.rng)
+    return {"poses_pred_batch": _final(b, pred, cfg), "clip_code_mu": mu,
+            "clip_code_logvar": logvar}

@@ -25,6 +25,12 @@ enqueued a step ahead; with DATASET.CACHING and DATASET.DEVICE_CACHE the
 train set is staged on the card once and a step's batch is one gather there;
 TRAIN.STEPS_PER_DISPATCH = K > 1 runs K steps in one CUDA graph
 (``pipelines/graphed.py``). SYS.PROFILE opens a ``torch.profiler`` window.
+
+``demo`` is the JAX ``--demo_input``: the demo split of a wav, a list of wavs
+or a directory, one clip at a time through the pipeline's ``demo_step``,
+DEMO.MULTIPLE times a clip (the code moved from DEMO.CODE_INDEX towards
+DEMO.CODE_INDEX_B by i / (MULTIPLE - 1)), each result archived with
+TEST.SAVE_NPZ as ``results/epoch0-DEMO-step{t}[-{i}].npz``.
 """
 
 from __future__ import annotations
@@ -57,10 +63,12 @@ PIPELINES = {
     "Voice2Pose": SimpleNamespace(state=voice2pose.Voice2PoseTrainState,
                                   train_step=voice2pose.train_step,
                                   eval_step=voice2pose.eval_step,
+                                  demo_step=voice2pose.demo_step,
                                   device_keys=voice2pose.DEVICE_KEYS),
     "Pose2Pose": SimpleNamespace(state=pose2pose.Pose2PoseTrainState,
                                  train_step=pose2pose.train_step,
                                  eval_step=pose2pose.eval_step,
+                                 demo_step=pose2pose.demo_step,
                                  device_keys=pose2pose.DEVICE_KEYS),
 }
 FGD_KEYS = ("mu_pred", "logvar_pred", "mu_gt", "logvar_gt")
@@ -74,13 +82,17 @@ def pipeline(cfg) -> SimpleNamespace:
     return PIPELINES[cfg.PIPELINE_TYPE]
 
 
-def check_trainer_options(cfg, evaluates: bool) -> None:
+def check_trainer_options(cfg, evaluates: bool, demo: bool = False) -> None:
     """Raise for what the port lacks: NotImplementedError for the options not
-    ported yet (TEST.SAVE_VIDEO only where the run evaluates), ValueError for
-    an unknown pipeline or option value."""
+    ported yet (TEST.SAVE_VIDEO only where the run evaluates or is a demo,
+    TRAIN.SAVE_VIDEO where it is not a demo, DEMO.SEQUENCE_PARALLEL in a
+    demo), ValueError for an unknown pipeline or option value."""
     pipeline(cfg)
-    todo = {"TRAIN.SAVE_VIDEO": (cfg.TRAIN.SAVE_VIDEO, "pose videos", 13),
-            "TEST.SAVE_VIDEO": (evaluates and cfg.TEST.SAVE_VIDEO, "pose videos", 13)}
+    todo = {"TRAIN.SAVE_VIDEO": (not demo and cfg.TRAIN.SAVE_VIDEO, "pose videos", 13),
+            "TEST.SAVE_VIDEO": ((evaluates or demo) and cfg.TEST.SAVE_VIDEO, "pose videos",
+                                13),
+            "DEMO.SEQUENCE_PARALLEL": (demo and cfg.DEMO.SEQUENCE_PARALLEL,
+                                       "the sequence-parallel demo", 14)}
     for key, (on, what, item) in todo.items():
         if on:
             raise NotImplementedError(f"{key} True ({what}) is not ported yet: ROADMAP.md "
@@ -191,11 +203,13 @@ def device_prefetch(loader, device):
 
 
 def save_results(base_path: str, tag: str, step: int, epoch: int,
-                 results: Dict[str, torch.Tensor]) -> str:
-    """``results/epoch{E}-{TAG}-step{S}.npz`` under the run's directory."""
+                 results: Dict[str, torch.Tensor], extra_id: Optional[int] = None) -> str:
+    """``results/epoch{E}-{TAG}-step{S}[-{extra_id}].npz`` under the run's
+    directory, each result as float32."""
     res_dir = os.path.join(base_path, "results")
     os.makedirs(res_dir, exist_ok=True)
-    path = os.path.join(res_dir, f"epoch{epoch}-{tag}-step{step}.npz")
+    suffix = "" if extra_id is None else f"-{extra_id}"
+    path = os.path.join(res_dir, f"epoch{epoch}-{tag}-step{step}{suffix}.npz")
     np.savez(path, **{k: v.detach().float().cpu().numpy() for k, v in results.items()})
     return path
 
@@ -594,3 +608,50 @@ def test(cfg, checkpoint: str, tag: str = "test", device="cuda") -> Dict[str, ob
         metrics = evaluate(state, loader, 0, run.path, run.writer)
     return {"metrics": metrics, "num_samples": len(loader.dataset),
             "checkpoint": checkpoint, "output_dir": run.path}
+
+
+def demo(cfg, checkpoint: str, demo_input: str, tag: str = "demo",
+         device="cuda") -> Dict[str, object]:
+    """The demo of a reference-layout ``.pth`` on ``demo_input`` (a wav, a
+    space-separated list of wavs, or a directory; the JAX ``--demo_input``).
+    Returns the clips' frame counts, the result archives written, the demo's
+    seconds (the card synchronized), the checkpoint and the run's
+    directory."""
+    device = resolve_device(device)
+    check_trainer_options(cfg, evaluates=False, demo=True)
+    if not str(checkpoint).endswith((".pth", ".pt")):
+        raise ValueError(f"--checkpoint {checkpoint!r}: the port reads reference-layout "
+                         ".pth checkpoints")
+    if cfg.PIPELINE_TYPE == "Pose2Pose" and cfg.DEMO.CODE_PATH is None:
+        raise ValueError("the Pose2Pose demo decodes the codes of DEMO.CODE_PATH: set it")
+    p = pipeline(cfg)
+    dataset = GestureDataset(cfg.DATASET.ROOT_DIR, cfg.DATASET.SPEAKER, cfg, split="demo",
+                             demo_input=demo_input)
+    if not len(dataset):
+        raise ValueError(f"--demo_input {demo_input!r}: no wav")
+    loader = torch.utils.data.DataLoader(dataset, batch_size=1, shuffle=False,
+                                         collate_fn=collate, num_workers=0)
+    state = p.state(cfg, None, device)
+    state.load_pth(checkpoint)
+    if cfg.PIPELINE_TYPE == "Voice2Pose" and cfg.DEMO.LENGTH_BUCKET_S:
+        log.info("DEMO.LENGTH_BUCKET_S %s is ignored: the dense demo runs each clip at its "
+                 "own length", cfg.DEMO.LENGTH_BUCKET_S)
+    M = cfg.DEMO.MULTIPLE
+    passes = [(None, None)] if M <= 1 else [(i, i / (M - 1)) for i in range(M)]
+    frames, paths = [], []
+    with _RunDir(cfg, tag) as run:
+        log.info("Demo begins: %s from %s, %d clips x %d, device %s", cfg.PIPELINE_TYPE,
+                 checkpoint, len(dataset), len(passes), state.device)
+        tic = time.perf_counter()
+        for t, batch in enumerate(loader, 1):
+            frames.append(int(batch["num_frames"][0]))
+            for extra_id, coeff in passes:
+                results = p.demo_step(state, batch, coeff)
+                if cfg.TEST.SAVE_NPZ:
+                    paths.append(save_results(run.path, "DEMO", t, 0, results, extra_id))
+        if state.device.type == "cuda":
+            torch.cuda.synchronize(state.device)
+        took = time.perf_counter() - tic
+        log.info("[DEMO] %d clips (%s frames) in %.3f s", len(frames), frames, took)
+    return {"num_frames": frames, "npz": paths, "seconds": took, "checkpoint": checkpoint,
+            "output_dir": run.path}

@@ -51,6 +51,17 @@ the conv1 and stem kernels, as serving runs them) on the code
 ``condition_code`` picks, the losses (the GAN ones with D in eval mode), the
 pose encoder in eval mode on the prediction and the ground truth (mu and
 logvar: the FGD features), the metrics.
+
+The demo (``demo_step``, the JAX ``demo_step``) takes one clip of any length
+(a batch of the demo split) to pixel-space poses by one of two routes. With
+DEMO.WINDOWED and a clip longer than DEMO.WINDOW_FRAMES, ``windowed_demo_
+forward``: the clip's windows (``ops/longform.py``) as one batch through the
+eval forward at the window's shape, one code for all of them, the window poses
+crossfaded back. Else the dense demo: one eval forward of the whole clip at
+its own length, through the mel, conv1 and stem kernels on the card.
+DEMO.LENGTH_BUCKET_S is read and ignored: the JAX package pads a clip to a
+length bucket only to bound its compiles, and its trimmed output equals the
+unpadded one to numerical precision; an eager forward compiles nothing.
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ import torch
 import torch.nn as nn
 
 from ..models import build_model
+from ..ops.longform import stitch_windows, window_audio
 from ..ops.mel import _mel_filterbank_np, mel_spectrogram, mel_spectrogram_plain
 from ..ops.pose import (get_final_results, multiply_batch, step_metrics,
                         transform_normalized_parted2global)
@@ -511,8 +523,9 @@ def condition_code(state: Voice2PoseTrainState, batch: Dict[str, torch.Tensor],
     CLIP_CODE.SAMPLE_FROM_NORMAL (N(0, 1) codes), CLIP_CODE.TEST_WITH_GT_CODE
     (the eval-mode pose encoder's mu of the ground truth, re-normalized on
     global poses), DEMO.CODE_INDEX (that bank row for every sample, moved
-    towards DEMO.CODE_INDEX_B by ``interpolation_coeff``); else a bank row
-    drawn uniformly for each sample. Draws come from ``state.rng``."""
+    towards DEMO.CODE_INDEX_B, where it is set, by ``interpolation_coeff``);
+    else a bank row drawn uniformly for each sample. Draws come from
+    ``state.rng``."""
     if state.clips_code is None:
         return None
     cfg, bank = state.cfg, state.clips_code.detach()
@@ -529,31 +542,32 @@ def condition_code(state: Voice2PoseTrainState, batch: Dict[str, torch.Tensor],
         with eval_mode(state.pose_encoder):
             return state.pose_encoder(gt)[0].float()
     if cfg.DEMO.CODE_INDEX is not None:
-        code = bank[cfg.DEMO.CODE_INDEX][None].expand(B, *bank.shape[1:])
-        if interpolation_coeff is not None:
-            code_b = bank[cfg.DEMO.CODE_INDEX_B][None].expand(B, *bank.shape[1:])
-            code = code * (1 - interpolation_coeff) + code_b * interpolation_coeff
-        return code
+        return demo_code(state, interpolation_coeff)[None].expand(B, *bank.shape[1:])
     idx = torch.randint(0, bank.shape[0], (B,), generator=state.rng, device=state.device)
     return bank[idx]
 
 
 @torch.no_grad()
 def eval_step(state: Voice2PoseTrainState, batch: Dict[str, object],
-              fixed_code: Optional[torch.Tensor] = None, plain: bool = False
+              fixed_code: Optional[torch.Tensor] = None, plain: bool = False,
+              num_frames: Optional[int] = None,
+              interpolation_coeff: Optional[float] = None
               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """One eval step on a batch repeated TEST.MULTIPLE times; returns
-    ``(losses, results)`` as device tensors: the losses (the GAN ones with D
-    in eval mode) and metrics where the batch has ground truth, the
-    pixel-space poses, the codes where the generator takes them, and the pose
-    encoder's mu and logvar of prediction and ground truth. ``fixed_code``
-    replaces ``condition_code``'s; ``plain`` takes the plain mel and stem
-    even on the card (a reference)."""
+    """One eval step; returns ``(losses, results)`` as device tensors: the
+    losses (the GAN ones with D in eval mode) and metrics where the batch has
+    ground truth, which it repeats TEST.MULTIPLE times (a demo batch has
+    none), the pixel-space poses, the codes where the generator takes them,
+    and the pose encoder's mu and logvar of prediction and ground truth.
+    ``fixed_code`` replaces ``condition_code``'s, which takes
+    ``interpolation_coeff``; ``plain`` takes the plain mel and stem even on
+    the card (a reference). ``num_frames`` (default DATASET.NUM_FRAMES) is the
+    output's length."""
     cfg, dev = state.cfg, state.device
     b = _to_device(batch, dev)
-    if cfg.TEST.MULTIPLE > 1:
+    if cfg.TEST.MULTIPLE > 1 and "poses" in b:
         b = multiply_batch(b, cfg.TEST.MULTIPLE)
     stat = b["speaker_stat"]
+    num_frames = num_frames or cfg.DATASET.NUM_FRAMES
 
     def final(p):
         return get_final_results(p, stat["mean"], stat["std"], stat["scale_factor"],
@@ -562,8 +576,9 @@ def eval_step(state: Voice2PoseTrainState, batch: Dict[str, object],
     D = state.discriminator
     with eval_mode(state.generator, state.pose_encoder, D):
         mel = (mel_spectrogram_plain if plain else mel_spectrogram)(b["audio"])
-        code = fixed_code.to(dev) if fixed_code is not None else condition_code(state, b)
-        pred = state.generator(mel, cfg.DATASET.NUM_FRAMES, code, plain=plain)
+        code = (fixed_code.to(dev) if fixed_code is not None
+                else condition_code(state, b, interpolation_coeff))
+        pred = state.generator(mel, num_frames, code, plain=plain)
         results = {"poses_pred_batch": final(pred)}
         if code is not None:
             results["condition_code"] = code
@@ -582,3 +597,62 @@ def eval_step(state: Voice2PoseTrainState, batch: Dict[str, object],
             results["poses_gt_batch"] = final(gt)
             losses.update(step_metrics(results["poses_pred_batch"], results["poses_gt_batch"]))
     return losses, results
+
+
+# ---- the demo ---------------------------------------------------------------------
+
+def demo_code(state: Voice2PoseTrainState,
+              interpolation_coeff: Optional[float] = None) -> Optional[torch.Tensor]:
+    """The one code of a whole clip (its windows share it): bank row
+    DEMO.CODE_INDEX, moved towards DEMO.CODE_INDEX_B by
+    ``interpolation_coeff``, or a row drawn from ``state.rng``; None for a
+    code-less generator."""
+    if state.clips_code is None:
+        return None
+    d, bank = state.cfg.DEMO, state.clips_code.detach()
+    if d.CODE_INDEX is None:
+        return bank[torch.randint(0, bank.shape[0], (), generator=state.rng,
+                                  device=state.device)]
+    code = bank[d.CODE_INDEX]
+    if interpolation_coeff is not None and d.CODE_INDEX_B is not None:
+        code = code * (1 - interpolation_coeff) + bank[d.CODE_INDEX_B] * interpolation_coeff
+    return code
+
+
+def windowed_demo_forward(state: Voice2PoseTrainState, batch: Dict[str, object],
+                          num_frames: int, interpolation_coeff: Optional[float] = None,
+                          plain: bool = False) -> Dict[str, torch.Tensor]:
+    """The clip's DEMO.WINDOW_FRAMES windows, overlapping by two
+    DEMO.HALO_FRAMES, as one batch through the eval forward at the window's
+    shape, then crossfaded back into ``num_frames`` frames."""
+    d = state.cfg.DEMO
+    windows, plan = window_audio(np.asarray(batch["audio"][0]), num_frames, d.WINDOW_FRAMES,
+                                 d.HALO_FRAMES)
+    n = len(windows)
+    wbatch = {"audio": torch.from_numpy(windows),
+              "speaker_stat": {k: torch.as_tensor(v)[:1].expand(n, *v.shape[1:])
+                               for k, v in batch["speaker_stat"].items()}}
+    code = demo_code(state, interpolation_coeff)
+    fixed = None if code is None else code[None].expand(n, *code.shape)
+    _, res = eval_step(state, wbatch, fixed, plain, num_frames=d.WINDOW_FRAMES)
+    pred = res["poses_pred_batch"].float().cpu().numpy()
+    out = {"poses_pred_batch": torch.from_numpy(
+        stitch_windows(pred, plan, num_frames, d.HALO_FRAMES)[None])}
+    if fixed is not None:
+        out["condition_code"] = fixed[:1]
+    return out
+
+
+def demo_step(state: Voice2PoseTrainState, batch: Dict[str, object],
+              interpolation_coeff: Optional[float] = None,
+              plain: bool = False) -> Dict[str, torch.Tensor]:
+    """A demo batch (one clip) -> ``{"poses_pred_batch": (1, T, 2, K)
+    [, "condition_code"]}``: windowed with DEMO.WINDOWED where the clip is
+    longer than a window, else one eval forward of the whole clip at its own
+    length."""
+    num_frames = int(np.asarray(batch["num_frames"]).reshape(-1)[0])
+    d = state.cfg.DEMO
+    if d.WINDOWED and num_frames > d.WINDOW_FRAMES:
+        return windowed_demo_forward(state, batch, num_frames, interpolation_coeff, plain)
+    return eval_step(state, batch, plain=plain, num_frames=num_frames,
+                     interpolation_coeff=interpolation_coeff)[1]

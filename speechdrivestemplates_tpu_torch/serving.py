@@ -17,7 +17,10 @@ Command line (one wav request; a reference-layout ``.pth`` checkpoint):
 ``--config_file`` picks the Voice2Pose preset the checkpoint was trained with,
 as ``main.py`` picks it (``configs/voice2pose_sdt_bp.yaml``, the default,
 ``configs/voice2pose_sdt_vae.yaml`` or ``configs/voice2pose_s2g.yaml``).
-Audio longer than DATASET.AUDIO_LENGTH is cropped, shorter audio zero-padded.
+The wav is read as the demo reads it (``utils.audio.load_wav``: scipy's
+reader, mono, ``resample_poly`` to 16 kHz); audio longer than
+DATASET.AUDIO_LENGTH is cropped, shorter audio zero-padded (the demo,
+``main --demo_input``, takes any length).
 A code model's code is N(0, 1) from ``numpy.random.RandomState(code_seed)``;
 a code-less checkpoint (s2g) draws no code.
 """
@@ -25,7 +28,6 @@ a code-less checkpoint (s2g) draws no code.
 from __future__ import annotations
 
 import argparse
-import wave
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -36,6 +38,7 @@ from .datasets.speakers_stat import get_speaker_stat
 from .models import build_model
 from .ops.mel import mel_spectrogram
 from .ops.pose import get_final_results
+from .utils.audio import load_wav
 from .utils.device import resolve_device
 from .utils.weights import load_reference_pth
 
@@ -71,30 +74,6 @@ def build_serving_fn(cfg, state_dict: Dict[str, torch.Tensor],
     return fn, has_code
 
 
-def load_wav_16k(path: str) -> np.ndarray:
-    """Mono float32 samples of a PCM wav, linearly resampled to 16 kHz."""
-    with wave.open(path, "rb") as w:
-        sr = w.getframerate()
-        n = w.getnframes()
-        ch = w.getnchannels()
-        width = w.getsampwidth()
-        raw = w.readframes(n)
-    if width == 2:
-        data = np.frombuffer(raw, dtype=np.int16).astype(np.float32) / 32768.0
-    elif width == 4:
-        data = np.frombuffer(raw, dtype=np.int32).astype(np.float32) / 2147483648.0
-    elif width == 1:
-        data = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128) / 128
-    else:
-        raise ValueError(f"unsupported sample width {width}")
-    if ch > 1:
-        data = data.reshape(-1, ch).mean(axis=1)
-    if sr != 16000:
-        t = np.arange(int(len(data) * 16000 / sr)) * (sr / 16000.0)
-        data = np.interp(t, np.arange(len(data)), data).astype(np.float32)
-    return data
-
-
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
         prog="python -m speechdrivestemplates_tpu_torch.serving",
@@ -121,7 +100,7 @@ def main(argv=None) -> None:
     fn, has_code = build_serving_fn(cfg, load_reference_pth(args.checkpoint), device)
 
     L = cfg.DATASET.AUDIO_LENGTH
-    audio = load_wav_16k(args.wav)
+    audio = load_wav(args.wav)
     clipped = len(audio) > L
     buf = np.zeros((1, L), np.float32)
     buf[0, : min(len(audio), L)] = audio[:L]

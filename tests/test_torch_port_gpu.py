@@ -31,7 +31,8 @@ def _randn(rng, *shape, scale=1.0, device="cuda"):
 # cross sample boundaries
 @pytest.mark.parametrize("dynamic_range_db", [0, 60])
 @pytest.mark.parametrize("shape", [(1, 257), (7, 257), (1, 300), (3, 300), (3, 16000),
-                                   (9, 16000), (5, 68267), (2, 68267), (32, 68266)])
+                                   (9, 16000), (5, 68267), (2, 68267), (32, 68266),
+                                   (1, 68266), (1, 164266), (1, 384000)])
 def test_mel_kernel_matches_plain(cuda, shape, dynamic_range_db):
     from speechdrivestemplates_tpu_torch import kernels
     from speechdrivestemplates_tpu_torch.ops import mel as M
@@ -54,7 +55,7 @@ def test_mel_kernel_matches_plain(cuda, shape, dynamic_range_db):
         torch.testing.assert_close(got[..., t_quiet:][sel], q[sel], rtol=1e-3, atol=0.0)
 
 
-@pytest.mark.parametrize("width", [2, 35, 36, 130, 427, 428])
+@pytest.mark.parametrize("width", [2, 35, 36, 130, 427, 428, 1027, 1201, 2401])
 @pytest.mark.parametrize("slope", [0.2, 0.0])
 def test_stem_kernel_fp32_matches_plain(cuda, width, slope):
     from speechdrivestemplates_tpu_torch.ops import stem as S
@@ -69,7 +70,7 @@ def test_stem_kernel_fp32_matches_plain(cuda, width, slope):
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("width", [2, 35, 213, 427, 428])
+@pytest.mark.parametrize("width", [2, 35, 213, 427, 428, 1027, 1201, 2401])
 def test_stem_tail_kernel_bf16_matches_plain_bf16(cuda, width):
     """B2 alone in bf16 (bf16 y2 and y3 inside) against the plain tail in bf16,
     on one bf16 conv1 activation; the bf16 quantile gate and a few bf16 ulps of
@@ -87,7 +88,9 @@ def test_stem_tail_kernel_bf16_matches_plain_bf16(cuda, width):
     assert got.shape == ref.shape == (3, 40, S.stem_dims(width)[1], 128)
     assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
     err = (got.float() - ref.float()).abs()
-    assert torch.quantile(err.flatten(), 0.99) < 0.05 and err.mean() < 0.02
+    # torch.quantile takes at most 2^24 values: every k-th of the wide demo widths'
+    q99 = torch.quantile(err.flatten()[:: max(1, err.numel() // 4_000_000)], 0.99)
+    assert q99 < 0.05 and err.mean() < 0.02
     assert err.max() < 0.1
 
 
@@ -105,8 +108,9 @@ def test_stem_kernel_bf16_within_quantile_gate(cuda):
 
 
 # 600: the stats kernel stages the plane in two passes (512 columns each); 2100: the
-# apply pass takes two column blocks (2048 each)
-@pytest.mark.parametrize("width", [2, 3, 37, 427, 428, 600, 2100])
+# apply pass takes two column blocks (2048 each); 1027 and 2401: a 10.3 s and a 24 s
+# demo clip's mel
+@pytest.mark.parametrize("width", [2, 3, 37, 427, 428, 600, 1027, 2100, 2401])
 @pytest.mark.parametrize("slope", [0.2, 0.0])
 def test_conv1_kernel_matches_plain(cuda, width, slope):
     from speechdrivestemplates_tpu_torch.ops import conv1 as C1

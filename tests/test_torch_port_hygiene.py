@@ -46,7 +46,8 @@ def test_importing_the_port_loads_no_jax():
             "speechdrivestemplates_tpu_torch.profile_train, "
             "speechdrivestemplates_tpu_torch.main, "
             "speechdrivestemplates_tpu_torch.chain_e2e, "
-            "speechdrivestemplates_tpu_torch.datasets.synthetic; "
+            "speechdrivestemplates_tpu_torch.datasets.synthetic, "
+            "speechdrivestemplates_tpu_torch.utils.streaming; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -125,6 +126,28 @@ def test_test_and_pose2pose_entry_points_need_cuda(tmp_path):
     assert not (tmp_path / "out").exists()
 
 
+def test_demo_entry_point_needs_cuda_unless_cpu_is_asked_for(tmp_path):
+    """``main --demo_input`` and ``trainer.demo``: the card unless the CPU is
+    asked for, before anything is read or written."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points run on it")
+    from speechdrivestemplates_tpu_torch import main
+    from speechdrivestemplates_tpu_torch.config import pose2pose, sdt_bp
+    from speechdrivestemplates_tpu_torch.pipelines import trainer
+
+    out = str(tmp_path / "out")
+    for cfg_file in ([], ["--config_file", "configs/voice2pose_s2g.yaml"],
+                     ["--config_file", "configs/pose2pose.yaml"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main.main([*cfg_file, "--demo_input", str(tmp_path / "none.wav"), "--checkpoint",
+                       str(tmp_path / "x.pth"), "SYS.OUTPUT_DIR", out,
+                       "TEST.SAVE_VIDEO", "False"])
+    for cfg in (sdt_bp(), pose2pose()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            trainer.demo(cfg, str(tmp_path / "x.pth"), str(tmp_path / "none.wav"))
+    assert not (tmp_path / "out").exists()
+
+
 def test_every_refusal_names_its_roadmap_item():
     """Each ``raise NotImplementedError`` in the port says which queue-A item
     of ROADMAP.md will port what it refuses. Since s2g (item 11) is ported,
@@ -153,6 +176,16 @@ def test_every_refusal_names_its_roadmap_item():
         setattr(cfg.TRAIN if key.startswith("TRAIN") else cfg.TEST, "SAVE_VIDEO", True)
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 13"):
             check_trainer_options(cfg, evaluates=True)
+    # the demo: its videos (item 13), and the sequence-parallel demo (item 14)
+    cfg = sdt_bp()
+    with pytest.raises(NotImplementedError, match="TEST.SAVE_VIDEO.*queue A, item 13"):
+        check_trainer_options(cfg, evaluates=False, demo=True)
+    cfg.TEST.SAVE_VIDEO, cfg.DEMO.SEQUENCE_PARALLEL = False, True
+    with pytest.raises(NotImplementedError,
+                       match="DEMO.SEQUENCE_PARALLEL.*ROADMAP.md queue A, item 14"):
+        check_trainer_options(cfg, evaluates=False, demo=True)
+    cfg.TRAIN.SAVE_VIDEO = False
+    check_trainer_options(cfg, evaluates=False)  # read by the demo only
 
 
 def test_cpu_serving_launches_no_kernel(rng):
