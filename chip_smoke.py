@@ -116,15 +116,30 @@ Phases, each of which must pass or the script exits non-zero:
               trainer.demo, which the command line calls, s2g from phase 16's checkpoint,
               SDT-VAE from phase 14's, Pose2Pose decoding DEMO.CODE_PATH;
               (e) whether `import cv2` works and ffmpeg is on PATH (facts, not gates)
+ 18. export   the serving export (the kernels as `torch.ops.sdt.*`): (a) `main --export`
+              of phase 11's checkpoint (SDT-BP bf16) at B = 1 and 128 in subprocesses,
+              each graph calling sdt.mel, sdt.conv1_in and sdt.stem once; (b) the B = 128
+              artifact loaded here: one call launches mel 1, conv1 1, stem 1, its poses
+              held to build_serving_fn's (rel L2 < 1e-3, bit equality reported), its ms;
+              (c) `run_artifact.py` in a subprocess with the B = 1 artifact on phase 8's
+              wav: the serving command line's npz of phase 11 (rel L2 < 1e-3, bit
+              equality reported); (d) `run_artifact.py --bench 20` at B = 128; (e) phase
+              16's s2g checkpoint exported here at B = 16: its graph calls sdt.mel alone,
+              one call launches mel once, poses held to build_serving_fn's; (f) export
+              and load seconds, artifact bytes; (g) a streaming session off a B = 1
+              artifact at the window's length (68,266 samples) launches each kernel once a
+              window and is held to the windowed demo of the 24 s clip at phase 17's gate
 Then one JSON line with every kernel's error, times, bound and launches (the mel
 kernel's count over the serving requests, the train phase's steps, the eval
 batches, phase 15's SDT-BP loops, whose CUDA graphs count a launch where it
 was captured, not where it was replayed, and phase 16's requests, steps and
-loops, and phase 17's demo routes; conv1's and the stem's over the serving
-requests, the eval batches and the demo routes), the card's name and power
-limit, a JSON line with the train step's time, one with phases 12-14's
-numbers, one with phase 15's, one with phase 16's and one with phase 17's,
-and last {"ok": true, "device": {...}}.
+loops, phase 17's demo routes and phase 18's main path (one B = 128 artifact
+call, one s2g artifact call, the 11 windows streamed off the window
+artifact; not its reference, warm-up or timed calls); conv1's and the stem's
+over the serving requests, the eval batches, the demo routes and phase 18), the card's name and power limit, a JSON line with the train
+step's time, one with phases 12-14's numbers, one with phase 15's, one with
+phase 16's, one with phase 17's and one with phase 18's, and last {"ok":
+true, "device": {...}}.
 
 Times are CUDA-event means over repeated calls after a warm-up; inputs rotate over
 three copies so that each call reads from device memory rather than the 50 MB L2.
@@ -1646,6 +1661,163 @@ def main() -> None:
           f"{demo_line['demo']['ffmpeg_on_path']}; phase 17 took "
           f"{demo_line['demo']['phase_seconds']:.1f} s", flush=True)
 
+    # ---- 18. the serving export: main --export, the artifact, the runner -------------
+    from speechdrivestemplates_tpu_torch.utils.export import (export_serving_fn, graph_ops,
+                                                              load_serving_fn)
+
+    t18 = time.perf_counter()
+    exp_dir = os.path.join(work, "export")
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    os.makedirs(exp_dir)
+    bp_ops = {"sdt.conv1_in": 1, "sdt.mel": 1, "sdt.stem": 1}
+    p18 = collections.Counter()  # the main path's launches: the three runs below alone
+
+    def main_path(call):
+        """``call()`` with the counters zeroed just before it, read just after;
+        its launches are added to phase 18's count. The reference calls, the
+        warm-ups and the timed calls around it are not counted."""
+        kernels.reset_launch_counts()
+        out = call()
+        torch.cuda.synchronize()
+        n = dict(kernels.LAUNCHES)
+        p18.update(n)
+        return out, n
+
+    def rel_l2(got, ref):
+        return (torch.linalg.norm((got - ref).double()) / torch.linalg.norm(ref.double())).item()
+
+    # (a) main --export of phase 11's checkpoint with the default preset (SDT-BP,
+    # bf16), as the serving command line serves it, at B = 1 and B = 128
+    arts, export_s, art_bytes = {}, {}, {}
+    for eb in (1, 128):
+        arts[eb] = os.path.join(exp_dir, f"sdt_bp_b{eb}.pt2")
+        t0 = time.perf_counter()
+        side = main_cli("--export", arts[eb], "--export_batch", str(eb), "--checkpoint", ckpt)
+        export_s[f"sdt_bp_b{eb}_cli_process"] = time.perf_counter() - t0
+        art_bytes[f"sdt_bp_b{eb}"] = side["bytes"]
+        check(side["ops"] == bp_ops and side["device"] == "cuda" and side["batch_size"] == eb
+              and side["bytes"] == os.path.getsize(arts[eb]), f"--export B={eb}: {side}")
+        graph = graph_ops(torch.export.load(arts[eb]))
+        check(graph == bp_ops, f"the B={eb} artifact's graph calls {graph}, expected {bp_ops}")
+
+    # (b) the B = 128 artifact in this process against build_serving_fn
+    t0 = time.perf_counter()
+    art = load_serving_fn(arts[128])
+    load_s = {"sdt_bp_b128": time.perf_counter() - t0}
+    fn, _ = build_serving_fn(sdt_bp(), load_reference_pth(ckpt), device="cuda")
+    audio, code = dev_randn(128, L, scale=0.1), dev_randn(128, 32)
+    got, n = main_path(lambda: art(audio, code))
+    check(n == {"mel": 1, "conv1": 1, "stem": 1}, f"one call of the B=128 artifact launched {n}")
+    ref = fn(audio, code)
+    art_rel = rel_l2(got, ref)
+    art_equal = bool(torch.equal(got, ref))
+    check(got.shape == (128, 64, 2, 121) and art_rel < 1e-3,
+          f"B=128 artifact vs build_serving_fn: rel L2 {art_rel}")
+    art_ms = cuda_ms(art, [(audio, code)], 20)
+    print(f"[export] main --export of phase 11's checkpoint, B=1 and 128: graphs call {bp_ops}, "
+          f"{art_bytes} bytes, {export_s} s; B=128 loaded in {load_s['sdt_bp_b128']:.2f} s, one "
+          f"call launched {n}, vs build_serving_fn rel L2 {art_rel:.3e} (bit for bit "
+          f"{art_equal}), {art_ms:.4f} ms a call (build_serving_fn {fwd_ms:.4f} ms in phase 7)",
+          flush=True)
+
+    # (c) the runner on phase 8's wav with the B = 1 artifact, against phase 11's
+    # serving command line on the same wav and code seed (0)
+    runner = os.path.join(ROOT, "speechdrivestemplates_tpu_torch", "run_artifact.py")
+
+    def run_runner(*args):
+        r = subprocess.run([sys.executable, runner, *args], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=300)
+        check(r.returncode == 0, f"run_artifact {args} rc {r.returncode}:\n{r.stdout}\n"
+                                 f"{r.stderr[-4000:]}")
+        return r.stdout.strip().splitlines()
+
+    r_out = os.path.join(exp_dir, "runner_b1.npz")
+    t0 = time.perf_counter()
+    run_runner(arts[1], wav_path, r_out, "--code-seed", "0")
+    runner_s = time.perf_counter() - t0
+    with np.load(r_out) as z, np.load(served) as s:
+        r_got, r_ref = torch.from_numpy(z["poses"]), torch.from_numpy(s["poses"])
+    runner_rel = rel_l2(r_got, r_ref)
+    runner_equal = bool(torch.equal(r_got, r_ref))
+    check(r_got.shape == (64, 2, 121) and runner_rel < 1e-3,
+          f"runner vs the serving command line: rel L2 {runner_rel}")
+
+    # (d) --bench 20 at B = 128
+    bench = json.loads(run_runner(arts[128], wav_path, os.path.join(exp_dir, "runner_b128.npz"),
+                                  "--bench", "20")[-1])
+    check(bench["batch"] == 128 and bench["value"] > 0 and bench["per_call_ms"] > 0,
+          f"runner --bench: {bench}")
+    print(f"[export-runner] run_artifact.py B=1 on phase 8's wav = the serving CLI: rel L2 "
+          f"{runner_rel:.3e}, bit for bit {runner_equal} ({runner_s:.1f} s with its process); "
+          f"--bench 20 at B=128: {bench['per_call_ms']:.4f} ms a call, {bench['value']:.1f} "
+          f"frames/s (phase 7's forward {fwd_ms:.4f} ms, {128 * 64 / (fwd_ms / 1e3):.1f})",
+          flush=True)
+
+    # (e) s2g: phase 16's checkpoint exported in this process, B = 16
+    s_art_path = os.path.join(exp_dir, "s2g_b16.pt2")
+    t0 = time.perf_counter()
+    s_meta = export_serving_fn(s2g_preset(), c_s2g_resumed["checkpoint"], s_art_path,
+                               batch_size=16)
+    export_s["s2g_b16_in_process"] = time.perf_counter() - t0
+    art_bytes["s2g_b16"] = s_meta["bytes"]
+    graph = graph_ops(torch.export.load(s_art_path))
+    check(s_meta["ops"] == graph == {"sdt.mel": 1} and s_meta["code_dim"] is None,
+          f"s2g export: sidecar {s_meta}, graph {graph}")
+    t0 = time.perf_counter()
+    s_art = load_serving_fn(s_art_path)
+    load_s["s2g_b16"] = time.perf_counter() - t0
+    s_fn, _ = build_serving_fn(s2g_preset(), load_reference_pth(c_s2g_resumed["checkpoint"]),
+                               device="cuda")
+    a16 = dev_randn(16, L, scale=0.1)
+    got, n = main_path(lambda: s_art(a16))
+    check(n == {"mel": 1}, f"one call of the s2g artifact launched {n}")
+    ref = s_fn(a16)
+    s_art_rel, s_art_equal = rel_l2(got, ref), bool(torch.equal(got, ref))
+    check(got.shape == (16, 64, 2, 121) and s_art_rel < 1e-3,
+          f"s2g artifact vs build_serving_fn: rel L2 {s_art_rel}")
+
+    # (g) streaming off a B = 1 artifact at the window's length, held to phase 17's
+    # windowed demo of the 24 s clip at phase 17's gate
+    w_art_path = os.path.join(exp_dir, "sdt_bp_window.pt2")
+    w_meta = export_serving_fn(sdt_bp(), ckpt, w_art_path, audio_length=68266)
+    w_art = load_serving_fn(w_art_path)
+    windowed = demo_state("bf16", "DEMO.WINDOWED", "True")
+    w_code = windowed.clips_code[0:1].detach()
+    b = batches[24.0]
+    out_win = V2P.demo_step(windowed, b)["poses_pred_batch"].to(dev)
+    audio24 = load_wav(clips[24.0])
+
+    def stream_off_artifact():
+        sess = StreamingPoseSession(lambda a: w_art(a, w_code).float().cpu().numpy())
+        got = [sess.feed(audio24[i: i + 8000]) for i in range(0, len(audio24), 8000)]
+        return torch.from_numpy(np.concatenate([g for g in got + [sess.flush()] if g.size]))
+
+    streamed, n = main_path(stream_off_artifact)
+    check(n == {"mel": 11, "conv1": 11, "stem": 11},
+          f"streaming 24 s off the window artifact launched {n} (11 windows)")
+    a_rel, a_corr = motion_gate(streamed[None].to(dev), out_win, b,
+                                "streaming 24 s off the window artifact vs windowed",
+                                STREAM_REL_L2)
+    del art, s_art, w_art, fn, s_fn, windowed
+    for name, v in p18.items():
+        report[name]["launches"] += v
+    export_line = {"export": {
+        "card": card, "export_seconds": export_s, "load_seconds": load_s, "bytes": art_bytes,
+        "window_artifact_bytes": w_meta["bytes"], "graph_ops_sdt_bp": bp_ops,
+        "artifact_vs_build_serving_fn_b128": {"rel_l2": art_rel, "bit_identical": art_equal},
+        "artifact_ms_b128": art_ms, "phase7_forward_ms_b128": fwd_ms,
+        "runner_vs_serving_cli_b1": {"rel_l2": runner_rel, "bit_identical": runner_equal},
+        "runner_b1_seconds_with_process": runner_s, "runner_bench_b128": bench,
+        "s2g_vs_build_serving_fn_b16": {"rel_l2": s_art_rel, "bit_identical": s_art_equal},
+        "streaming_artifact_vs_windowed_24s": {"rel_l2": a_rel, "corr": a_corr,
+                                               "gate_rel_l2": STREAM_REL_L2},
+        "launches": dict(p18), "phase_seconds": time.perf_counter() - t18}}
+    print(f"[export-s2g] s2g B=16 exported in {export_s['s2g_b16_in_process']:.2f} s, graph "
+          f"{graph}, vs build_serving_fn rel L2 {s_art_rel:.3e} (bit for bit {s_art_equal}); "
+          f"streaming 24 s off a B=1 window artifact vs the windowed demo: rel L2 {a_rel:.3e} "
+          f"(gate {STREAM_REL_L2}), corr {a_corr:.6f}; phase 18 launched {dict(p18)} and took "
+          f"{export_line['export']['phase_seconds']:.1f} s", flush=True)
+
     # ---- summary -----------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1657,6 +1829,7 @@ def main() -> None:
     print(json.dumps({"graphed": graph_line}))
     print(json.dumps(s2g_line))
     print(json.dumps(demo_line))
+    print(json.dumps(export_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -23,12 +23,19 @@ layout ``.pth`` checkpoints with resume files, resume / pretrain /
 auto-resume, preemption, TensorBoard scalars, the train set staged on the
 card, and K train steps in one CUDA graph, ``pipelines/graphed.py``).
 
+The serving export (``utils/export.py``): ``main --export`` writes the
+serving function as a ``torch.export`` artifact whose graph calls the kernels
+as ``torch.ops.sdt.*`` (``kernels/ops.py``), and ``run_artifact.py`` serves it
+without the model code.
+
 Entry points run on the card unless the caller passes ``device="cpu"``:
-``python -m speechdrivestemplates_tpu_torch.main`` (training and
-``--test_only``), ``chain_e2e`` (the paper's chain at ``bench_e2e.py``'s budget),
+``python -m speechdrivestemplates_tpu_torch.main`` (training,
+``--test_only``, ``--demo_input`` and ``--export``), ``run_artifact.py``,
+``chain_e2e`` (the paper's chain at ``bench_e2e.py``'s budget),
 ``serving.build_serving_fn``, ``python -m speechdrivestemplates_tpu_torch.serving``
-and ``models.build_model``. Three more measure the card:
+and ``models.build_model``. Four more measure the card:
 ``profile_serving`` and ``profile_train`` (device time by kernel of the
-serving forward and of the train step) and ``profile_kernels`` (the conv1
-kernel and the tap-shift probe, ``ops/shift_probe.py``, beside cuDNN).
+serving forward and of the train step), ``profile_kernels`` (the conv1
+kernel and the tap-shift probe, ``ops/shift_probe.py``, beside cuDNN) and
+``profile_dispatch`` (host time where the host sets the pace).
 """

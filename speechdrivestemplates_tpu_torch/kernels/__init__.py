@@ -7,15 +7,23 @@ pointers and the CUDA stream go over as ``c_void_p``. A library is rebuilt
 when its source is newer. ``build_all()`` compiles every source at once, one
 ``nvcc`` process each.
 
-``LAUNCHES`` counts, per kernel, the calls in which its wrapper launched it
-(the wrappers in ``ops/`` add one right where they launch, nowhere else). A
-launch made while a stream captures a CUDA graph is recorded, not run: the
-graph runner (``pipelines/graphed.py``) adds those to ``CAPTURED``, and each
-replay adds the graph's captured launches to ``REPLAYED``. ``executions()``
-counts the kernels that ran: ``LAUNCHES - CAPTURED + REPLAYED``.
+Importing this package registers the kernels as ``torch.library`` custom
+ops, ``torch.ops.sdt.{mel, conv1_in, stem, shift_taps}`` (``kernels/ops.py``);
+the ``ctypes`` calls live in those ops' CUDA implementations alone. The
+wrappers in ``ops/`` check their inputs and call the ops, and an exported
+serving graph (``utils/export.py``) calls them too, so a process that loads
+one imports this package first.
+
+``LAUNCHES`` counts, per kernel, the calls in which an op's implementation
+launched it (one right where it launches, nowhere else; a fake call, as
+``torch.export`` makes, counts nothing). A launch made while a stream
+captures a CUDA graph is recorded, not run: the graph runner
+(``pipelines/graphed.py``) adds those to ``CAPTURED``, and each replay adds
+the graph's captured launches to ``REPLAYED``. ``executions()`` counts the
+kernels that ran: ``LAUNCHES - CAPTURED + REPLAYED``.
 
 The kernels are forward-only, as the JAX package's Pallas kernels are: they
-write through raw pointers, so their outputs carry no ``grad_fn``. Each
+write through raw pointers, and the ops have no autograd formula. Each
 wrapper calls ``refuse_grad`` first, so a gradient is never dropped silently.
 """
 
@@ -44,6 +52,10 @@ SIGNATURES = {
                                   _I, _I, _F, _P]},
     "shift_probe": {"sdt_shift_taps_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
 }
+
+# what the wrappers in ops/ take: CUDA tensors, and meta tensors, whose shapes
+# the ops' fakes give (a trace of the card's route on a machine without one)
+DEVICE_TYPES = ("cuda", "meta")
 
 LAUNCHES: collections.Counter = collections.Counter()
 CAPTURED: collections.Counter = collections.Counter()
@@ -144,3 +156,6 @@ def current_stream(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+from . import ops  # noqa: E402,F401  (registers torch.ops.sdt.*)

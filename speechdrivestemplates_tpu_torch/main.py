@@ -1,6 +1,7 @@
-"""Train, test or run the demo with the port:
+"""Train, test, run the demo or export the serving function with the port:
 
     python -m speechdrivestemplates_tpu_torch.main [--config_file configs/NAME.yaml]
+        [--export PATH [--export_batch N] --checkpoint CKPT.pth]
         [--demo_input WAV|"WAV WAV ..."|DIR --checkpoint CKPT.pth]
         [--test_only --checkpoint CKPT.pth] [--resume_from CKPT|RUN_DIR]
         [--pretrain_from CKPT.pth] [--device cuda|cpu] [--tag T] [KEY VALUE ...]
@@ -18,8 +19,13 @@ list of wavs or a directory of them (DEMO.NUM_SAMPLES of it), at any length up
 to DATASET.MAX_DEMO_LENGTH seconds (``pipelines/trainer.py::demo``; it needs
 ``TEST.SAVE_VIDEO False``, and for Pose2Pose DEMO.CODE_PATH);
 ``--test_only`` evaluates ``--checkpoint`` on the val split instead of training.
-The demo takes precedence over the test, the test over training, as in the JAX
-``main.py``. ``--resume_from`` continues
+``--export PATH`` writes ``--checkpoint``'s wav -> pose serving function at
+(``--export_batch``, DATASET.AUDIO_LENGTH) to a ``torch.export`` artifact and
+its ``PATH.json`` sidecar (``utils/export.py``; Voice2Pose presets only), for
+the device that ``--device`` names: on the card its graph calls the kernels,
+on the CPU the plain route; ``run_artifact.py`` serves it. The export takes
+precedence over the demo, the demo over the test, the test over training, as
+in the JAX ``main.py``. ``--resume_from`` continues
 a run from a checkpoint the port wrote (a ``.pth`` with its resume file, its
 run directory or ``checkpoints/``), in that run's directory; ``--pretrain_from``
 (TRAIN.PRETRAIN_FROM) starts a new run from a ``.pth``'s weights with fresh
@@ -28,8 +34,8 @@ Runs on the card unless ``--device cpu`` is given, and raises without one.
 Prints one JSON line at the end: a training run's steps, last losses, last
 checkpoint (which the serving command line loads, given the same
 ``--config_file``; a code-less s2g checkpoint draws no code there) and the
-checkpoint it resumed from, a test run's metrics, or the demo's frame counts
-and result archives. A training run ended by SIGTERM
+checkpoint it resumed from, a test run's metrics, the demo's frame counts
+and result archives, or the export's sidecar. A training run ended by SIGTERM
 (TRAIN.CHECKPOINT_ON_PREEMPT) exits 143 after its checkpoint.
 """
 
@@ -42,11 +48,12 @@ import logging
 from .config import apply_overrides, preset_for_config_file, sdt_bp
 from .pipelines.trainer import demo, test, train
 from .utils.device import resolve_device
+from .utils.export import export_serving_fn
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m speechdrivestemplates_tpu_torch.main",
-                                 description="train, test or demo (the port, PyTorch/CUDA)")
+                                 description="train, test, demo or export (the port, PyTorch/CUDA)")
     ap.add_argument("--config_file", default="", metavar="FILE",
                     help="configs/<name>.yaml: the preset of that name (default SDT-BP)")
     ap.add_argument("--test_only", action="store_true",
@@ -54,7 +61,15 @@ def main(argv=None) -> dict:
     ap.add_argument("--demo_input", default=None, metavar="WAV|DIR",
                     help="run the demo of --checkpoint on this wav, list or directory")
     ap.add_argument("--checkpoint", default=None,
-                    help="the .pth that --test_only evaluates or --demo_input runs")
+                    help="the .pth that --test_only evaluates, --demo_input runs or "
+                         "--export exports")
+    ap.add_argument("--export", default=None, metavar="PATH",
+                    help="export --checkpoint's serving function (weights and speaker "
+                         "statistics baked in) to a torch.export artifact at PATH")
+    ap.add_argument("--export_batch", type=int, default=1,
+                    help="batch size of the --export artifact (shapes are static: one "
+                         "artifact per serving batch, e.g. 1 for latency, 128 for "
+                         "throughput)")
     ap.add_argument("--resume_from", default=None,
                     help="continue training from this checkpoint (or run directory)")
     ap.add_argument("--pretrain_from", default=None,
@@ -65,10 +80,10 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    if (args.test_only or args.demo_input) and not args.checkpoint:
-        ap.error("--test_only and --demo_input need --checkpoint")
-    if args.checkpoint and not (args.test_only or args.demo_input):
-        ap.error("--checkpoint is read by --test_only and --demo_input only")
+    if (args.export or args.test_only or args.demo_input) and not args.checkpoint:
+        ap.error("--export, --test_only and --demo_input need --checkpoint")
+    if args.checkpoint and not (args.export or args.test_only or args.demo_input):
+        ap.error("--checkpoint is read by --export, --test_only and --demo_input only")
     try:
         cfg = preset_for_config_file(args.config_file) if args.config_file else sdt_bp()
         cfg = apply_overrides(cfg, args.opts)
@@ -78,7 +93,12 @@ def main(argv=None) -> dict:
         cfg.TRAIN.PRETRAIN_FROM = args.pretrain_from
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s [%(levelname)-0.5s] %(message)s")
-    if args.demo_input:
+    if args.export:
+        if cfg.PIPELINE_TYPE != "Voice2Pose":
+            ap.error(f"--export: {cfg.PIPELINE_TYPE} has no audio input to serve")
+        summary = export_serving_fn(cfg, args.checkpoint, args.export,
+                                    batch_size=args.export_batch, device=device)
+    elif args.demo_input:
         summary = demo(cfg, args.checkpoint, args.demo_input, args.tag, device)
     elif args.test_only:
         summary = test(cfg, args.checkpoint, args.tag, device)

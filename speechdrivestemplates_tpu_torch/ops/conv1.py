@@ -9,11 +9,12 @@ padding (0, 1). The counterpart of the JAX package's ``probes/conv1_pallas.py``
 (``fused_conv1_in``), which takes an HWIO weight; this one takes PyTorch's
 OIHW (64, 1, 3, 3).
 
-``fused_conv1_in`` is the entry: the CUDA kernel (``csrc/conv1.cu``) on a CUDA
-tensor, ``conv1_in_plain`` on a CPU tensor. The kernel takes its statistics
-from the Gram matrix of the nine shifted mel views in fp64 and folds the norm
-into the taps; ``conv1_stats_gram`` and ``conv1_in_folded`` restate that
-arithmetic in torch for the tests.
+``fused_conv1_in`` is the entry: the CUDA kernel (``csrc/conv1.cu``, the op
+``torch.ops.sdt.conv1_in``) on a CUDA tensor, ``conv1_in_plain`` on a CPU
+tensor. The kernel takes its statistics from the Gram matrix of the nine
+shifted mel views in fp64 and folds the norm into the taps;
+``conv1_stats_gram`` and ``conv1_in_folded`` restate that arithmetic in torch
+for the tests.
 """
 
 from __future__ import annotations
@@ -93,7 +94,7 @@ def conv1_in_kernel(mel: torch.Tensor, w1: torch.Tensor, slope: float = 0.2,
     raises for an input that requires grad under grad mode."""
     kernels.refuse_grad("the conv1 kernel", mel, w1)
     dev = mel.device
-    if dev.type != "cuda":
+    if dev.type not in kernels.DEVICE_TYPES:
         raise ValueError("conv1 kernel takes CUDA tensors")
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv1 kernel writes float32 or bfloat16, not {dtype}")
@@ -102,18 +103,7 @@ def conv1_in_kernel(mel: torch.Tensor, w1: torch.Tensor, slope: float = 0.2,
     if tuple(w1.shape) != (C1, 1, 3, 3) or w1.device != dev:
         raise ValueError(f"conv1 weight {tuple(w1.shape)} on {w1.device}: "
                          f"expected {(C1, 1, 3, 3)} on {dev}")
-    B, _, W1 = mel.shape
-    mel = mel.float().contiguous()
-    w1 = w1.float().contiguous()
-    taps = torch.empty(B * 10 * C1, dtype=torch.float32, device=dev)  # folded taps + bias
-    out = torch.empty((B, ROWS, W1, C1), dtype=dtype, device=dev)
-    lib = kernels.library("conv1")
-    err = lib.sdt_conv1_in_forward(
-        mel.data_ptr(), w1.data_ptr(), out.data_ptr(), int(dtype == torch.bfloat16),
-        taps.data_ptr(), B, W1, float(slope), kernels.current_stream(dev))
-    kernels.LAUNCHES["conv1"] += 1
-    kernels.check(err, "sdt_conv1_in_forward")
-    return out
+    return torch.ops.sdt.conv1_in(mel.float(), w1.float(), float(slope), dtype)
 
 
 def fused_conv1_in(mel: torch.Tensor, w1: torch.Tensor, slope: float = 0.2,

@@ -4,11 +4,12 @@ uses it: periodic Hann(400) zero-padded to 512, center=True with reflect
 padding, power spectrum, HTK mel filterbank without normalization.
 
 ``mel_spectrogram`` is the entry: on a CUDA tensor it launches the fused
-STFT+mel kernel (``csrc/mel.cu``: the DFT and the mel projection on the tensor
-cores as three bf16 passes, hi*hi + hi*lo + lo*hi, reflect padding by index)
-and raises if it cannot; on a CPU tensor it runs ``mel_spectrogram_plain``, the
-same function in plain PyTorch (the JAX package's ``impl='dft'`` path:
-framing, two real-DFT matmuls, power, mel matmul).
+STFT+mel kernel (``csrc/mel.cu``, the op ``torch.ops.sdt.mel``: the DFT and
+the mel projection on the tensor cores as three bf16 passes, hi*hi + hi*lo +
+lo*hi, reflect padding by index) and raises if it cannot; on a CPU tensor it
+runs ``mel_spectrogram_plain``, the same function in plain PyTorch (the JAX
+package's ``impl='dft'`` path: framing, two real-DFT matmuls, power, mel
+matmul).
 """
 
 from __future__ import annotations
@@ -110,9 +111,11 @@ def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 @functools.lru_cache(maxsize=8)
 def _kernel_tables(device: torch.device):
-    """The kernel's constant operands split once: (cs_hi, cs_lo, fb_hi, fb_lo)."""
+    """The kernel's constant operands split once: (cs_hi, cs_lo, fb_hi, fb_lo),
+    made outside inference mode, as every cached constant of the port is."""
     cs, fb = (torch.from_numpy(a) for a in _kernel_tables_np())
-    return tuple(t.contiguous().to(device) for t in (*split_bf16(cs), *split_bf16(fb)))
+    with torch.inference_mode(False):
+        return tuple(t.contiguous().to(device) for t in (*split_bf16(cs), *split_bf16(fb)))
 
 
 def mel_spectrogram_plain(audio: torch.Tensor) -> torch.Tensor:
@@ -138,24 +141,16 @@ def mel_spectrogram_kernel(audio: torch.Tensor) -> torch.Tensor:
     """The fused STFT+mel CUDA kernel; same contract as the plain version.
     Forward-only: raises for audio that requires grad under grad mode."""
     kernels.refuse_grad("the mel kernel", audio)
-    if audio.device.type != "cuda":
+    if audio.device.type not in kernels.DEVICE_TYPES:
         raise ValueError("mel kernel takes a CUDA tensor")
     if audio.dtype != torch.float32:
         raise TypeError(f"mel kernel takes float32 audio, got {audio.dtype}")
     lead, L = audio.shape[:-1], audio.shape[-1]
     if L <= N_FFT // 2:
         raise ValueError(f"audio of {L} samples is too short for reflect padding")
-    x = audio.reshape(-1, L).contiguous()  # unpadded: the kernel mirrors by index
-    B = x.shape[0]
-    T = L // HOP_LENGTH + 1
-    tables = _kernel_tables(audio.device)
-    out = torch.empty((B, N_MELS, T), dtype=torch.float32, device=audio.device)
-    lib = kernels.library("mel")
-    err = lib.sdt_mel_forward(x.data_ptr(), *(t.data_ptr() for t in tables),
-                              out.data_ptr(), B, L, T, kernels.current_stream(audio.device))
-    kernels.LAUNCHES["mel"] += 1
-    kernels.check(err, "sdt_mel_forward")
-    return out.reshape(*lead, N_MELS, T)
+    # unpadded: the kernel mirrors by index
+    out = torch.ops.sdt.mel(audio.reshape(-1, L), *_kernel_tables(audio.device))
+    return out.reshape(*lead, N_MELS, out.shape[-1])
 
 
 def mel_spectrogram(audio: torch.Tensor) -> torch.Tensor:

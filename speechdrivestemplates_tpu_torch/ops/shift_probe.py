@@ -10,8 +10,8 @@ boundary handling: ``subtile`` needs m_out + 8 <= M. x (N, M, C) and w
 The counterpart of the JAX package's ``bench_profile.py::profile_shift_probe``
 bodies ``k_aligned`` / ``k_subtile``. It exists to measure what shifted views
 of one staged window cost, for ``profile_kernels.py``; no model path runs it.
-``shift_taps`` is the entry: the CUDA kernel (``csrc/shift_probe.cu``) on CUDA
-tensors, ``shift_taps_plain`` on CPU tensors.
+``shift_taps`` is the entry: the CUDA kernel (``csrc/shift_probe.cu``, the op
+``torch.ops.sdt.shift_taps``) on CUDA tensors, ``shift_taps_plain`` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -58,23 +58,15 @@ def shift_taps_kernel(x: torch.Tensor, w: torch.Tensor, m_out: int,
     bf16 in, fp32 accumulation); same contract. Forward-only: raises for an
     input that requires grad under grad mode."""
     kernels.refuse_grad("the shift-probe kernel", x, w)
-    if x.device.type != "cuda" or w.device != x.device:
+    if x.device.type not in kernels.DEVICE_TYPES or w.device != x.device:
         raise ValueError("shift-probe kernel takes CUDA tensors on one device")
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(f"shift-probe kernel takes bf16, got {x.dtype} and {w.dtype}")
     _check(x, w, m_out, mode)
-    N, M, C = x.shape
+    C = x.shape[2]
     if C not in CHANNELS:
         raise ValueError(f"shift-probe kernel takes C in {CHANNELS}, got {C}")
-    x, w = x.contiguous(), w.contiguous()
-    out = torch.empty((N, m_out, C), dtype=torch.bfloat16, device=x.device)
-    lib = kernels.library("shift_probe")
-    err = lib.sdt_shift_taps_forward(x.data_ptr(), w.data_ptr(), out.data_ptr(), N, M,
-                                     m_out, C, int(mode == "subtile"),
-                                     kernels.current_stream(x.device))
-    kernels.LAUNCHES["shift_probe"] += 1
-    kernels.check(err, "sdt_shift_taps_forward")
-    return out
+    return torch.ops.sdt.shift_taps(x, w, int(m_out), mode == "subtile")
 
 
 def shift_taps(x: torch.Tensor, w: torch.Tensor, m_out: int,

@@ -6,7 +6,9 @@
 poses in pixel space: mel frontend, generator, the speaker's statistics (the
 parted or the global table, as DATASET.HIERARCHICAL_POSE says), and re-rooting
 to global coordinates when DATASET.HIERARCHICAL_POSE. B and L come from the
-input.
+input. ``ServingModule`` is that function as an ``nn.Module``, which
+``utils/export.py`` exports at one (B, L) to a file that runs without this
+package's model code (``main --export``, ``run_artifact.py``).
 
 Command line (one wav request; a reference-layout ``.pth`` checkpoint):
 
@@ -28,10 +30,11 @@ a code-less checkpoint (s2g) draws no code.
 from __future__ import annotations
 
 import argparse
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from .config import preset_for_config_file, sdt_bp
 from .datasets.speakers_stat import get_speaker_stat
@@ -43,35 +46,53 @@ from .utils.device import resolve_device
 from .utils.weights import load_reference_pth
 
 
+class ServingModule(nn.Module):
+    """``forward(audio[, code])``: the serving graph over one generator's
+    weights and one speaker's statistics, in eval mode with no parameter
+    requiring grad; what ``build_serving_fn`` calls and ``utils/export.py``
+    exports. The kernels' route is the inputs' device's."""
+
+    def __init__(self, cfg, state_dict: Dict[str, torch.Tensor], device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.model = build_model(cfg.VOICE2POSE.GENERATOR.NAME, cfg, device=device)
+        self.model.load_state_dict(state_dict, strict=True)
+        self.model.requires_grad_(False)
+        self.has_code = cfg.VOICE2POSE.GENERATOR.CLIP_CODE.DIMENSION is not None
+        self.num_frames = cfg.DATASET.NUM_FRAMES
+        self.hierarchical = cfg.DATASET.HIERARCHICAL_POSE
+        self.num_kp = cfg.DATASET.NUM_LANDMARKS
+        stat = get_speaker_stat(cfg.DATASET.SPEAKER, self.num_kp, self.hierarchical)
+        self.register_buffer("mean", torch.from_numpy(stat["mean"]).to(device)[None])
+        self.register_buffer("std", torch.from_numpy(stat["std"]).to(device)[None])
+        self.register_buffer("scale", torch.tensor([float(stat["scale_factor"])],
+                                                   device=device))
+
+    def forward(self, audio: torch.Tensor,
+                code: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.has_code and code is None:
+            raise ValueError("this model takes a template code")
+        B = audio.shape[0]
+        mel = mel_spectrogram(audio)
+        pred = self.model(mel, self.num_frames, code if self.has_code else None)
+        return get_final_results(pred, self.mean.expand(B, -1), self.std.expand(B, -1),
+                                 self.scale.expand(B), self.hierarchical, self.num_kp)
+
+
 def build_serving_fn(cfg, state_dict: Dict[str, torch.Tensor],
                      device="cuda") -> Tuple[Callable, bool]:
     """``(fn, has_code)`` over the given generator weights on ``device``."""
     device = resolve_device(device)
-    model = build_model(cfg.VOICE2POSE.GENERATOR.NAME, cfg, device=device)
-    model.load_state_dict(state_dict, strict=True)
-    has_code = cfg.VOICE2POSE.GENERATOR.CLIP_CODE.DIMENSION is not None
-    num_frames = cfg.DATASET.NUM_FRAMES
-    hierarchical = cfg.DATASET.HIERARCHICAL_POSE
-    num_kp = cfg.DATASET.NUM_LANDMARKS
-    stat = get_speaker_stat(cfg.DATASET.SPEAKER, num_kp, hierarchical)
-    mean = torch.from_numpy(stat["mean"]).to(device)[None]
-    std = torch.from_numpy(stat["std"]).to(device)[None]
-    scale = torch.tensor([float(stat["scale_factor"])], device=device)
+    module = ServingModule(cfg, state_dict, device)
 
     @torch.inference_mode()
     def fn(audio, code=None):
         audio = torch.as_tensor(audio, dtype=torch.float32, device=device)
-        B = audio.shape[0]
-        if has_code:
-            if code is None:
-                raise ValueError("this model takes a template code")
+        if code is not None:
             code = torch.as_tensor(code, dtype=torch.float32, device=device)
-        mel = mel_spectrogram(audio)
-        pred = model(mel, num_frames, code if has_code else None)
-        return get_final_results(pred, mean.expand(B, -1), std.expand(B, -1),
-                                 scale.expand(B), hierarchical, num_kp)
+        return module(audio, code)
 
-    return fn, has_code
+    return fn, module.has_code
 
 
 def main(argv=None) -> None:

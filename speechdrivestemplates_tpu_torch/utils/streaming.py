@@ -17,6 +17,10 @@ finishes one stride (32 frames) of output.
     for chunk in chunks:
         frames = sess.feed(chunk)
     frames = sess.flush()
+
+or, without the model code, an artifact exported at B = 1 and the window's
+length (``utils.export.export_serving_fn(..., audio_length=68266)``), which
+takes the same arguments: ``fn = load_serving_fn(path)``.
 """
 
 from __future__ import annotations

@@ -569,3 +569,85 @@ def _run_plain_chunks(cfg, cache):
         runner.run(torch.tensor(c, device="cuda"))
         state.end_epoch()
     return state
+
+
+# ---- the kernels as torch.library ops, and the serving export -------------------------
+
+def _op_args(name, rng):
+    """Arguments of ``torch.ops.sdt.<name>`` at a serving shape, and its plain
+    version on them with the gate of its kernel's tests (rtol, atol)."""
+    from speechdrivestemplates_tpu_torch.ops import conv1 as C1
+    from speechdrivestemplates_tpu_torch.ops import mel as M
+    from speechdrivestemplates_tpu_torch.ops import shift_probe as SP
+    from speechdrivestemplates_tpu_torch.ops import stem as S
+
+    bf = torch.bfloat16
+    if name == "mel":
+        audio = _randn(rng, 3, 68267, scale=0.1)
+        return ((audio, *M._kernel_tables(audio.device)), M.mel_spectrogram_plain(audio),
+                (1e-3, 1e-4))
+    w1 = _randn(rng, 64, 1, 3, 3, scale=0.2)
+    mel = _randn(rng, 3, 80, 427)
+    if name == "conv1_in":
+        return (mel, w1, 0.2, torch.float32), C1.conv1_in_plain(mel, w1), (2e-5, 2e-5)
+    if name == "stem":
+        w2, w3 = _randn(rng, 64, 64, 4, 4, scale=0.05), _randn(rng, 128, 64, 3, 3, scale=0.05)
+        y1 = C1.conv1_in_plain(mel, w1)
+        wt = [w.permute(2, 3, 0, 1).contiguous() for w in (w2, w3)]
+        return (y1, *wt, 0.2), S.stem_tail_plain(y1, w2, w3), (2e-4, 2e-5)
+    x, w = _randn(rng, 4, 600, 64, scale=0.1).to(bf), _randn(rng, 9, 64, 64, scale=0.05).to(bf)
+    return (x, w, 500, True), SP.shift_taps_plain(x, w, 500), (1e-2, 1e-3)
+
+
+@pytest.mark.parametrize("name", ["mel", "conv1_in", "stem", "shift_taps"])
+def test_ops_match_their_plain_versions(cuda, name):
+    """Each op called through ``torch.ops.sdt`` directly, as an exported graph
+    calls it: one launch, the plain version's result within its kernel's gate."""
+    from speechdrivestemplates_tpu_torch import kernels
+
+    args, ref, (rtol, atol) = _op_args(name, np.random.RandomState(3))
+    kernels.reset_launch_counts()
+    got = getattr(torch.ops.sdt, name)(*args)
+    torch.cuda.synchronize()
+    assert sum(kernels.LAUNCHES.values()) == 1
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("name", ["mel", "conv1_in", "stem", "shift_taps"])
+def test_opcheck(cuda, name):
+    """``torch.library.opcheck``: the schema, the fake against the real
+    output, the autograd registration, and a trace under AOT dispatch."""
+    args, _, _ = _op_args(name, np.random.RandomState(4))
+    torch.library.opcheck(getattr(torch.ops.sdt, name), args)
+
+
+def test_cuda_export_equals_build_serving_fn(cuda, tmp_path):
+    """SDT-BP bf16 exported on the card at B = 4: its graph calls mel, conv1
+    and the stem once each, one call of the loaded artifact launches each
+    kernel once, and its poses are ``build_serving_fn``'s on the same inputs."""
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.config import sdt_bp
+    from speechdrivestemplates_tpu_torch.models import build_model
+    from speechdrivestemplates_tpu_torch.serving import build_serving_fn
+    from speechdrivestemplates_tpu_torch.utils.export import export_serving_fn, load_serving_fn
+
+    cfg = sdt_bp()
+    sd = build_model("SequenceGeneratorCNN", cfg, device="cpu",
+                     generator=torch.Generator().manual_seed(2)).state_dict()
+    ckpt = str(tmp_path / "bp.pth")
+    torch.save({"model_state_dict": {"module.netG." + k: v for k, v in sd.items()}}, ckpt)
+    meta = export_serving_fn(cfg, ckpt, str(tmp_path / "bp.pt2"), batch_size=4)
+    assert meta["device"] == "cuda"
+    assert meta["ops"] == {"sdt.conv1_in": 1, "sdt.mel": 1, "sdt.stem": 1}
+    art = load_serving_fn(str(tmp_path / "bp.pt2"))
+    fn, _ = build_serving_fn(cfg, sd, "cuda")
+    rng = np.random.RandomState(5)
+    audio, code = _randn(rng, 4, 68267, scale=0.1), _randn(rng, 4, 32)
+    kernels.reset_launch_counts()
+    got = art(audio, code)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"mel": 1, "conv1": 1, "stem": 1}
+    want = fn(audio, code)
+    rel = (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
+    assert got.shape == (4, 64, 2, 121) and rel < 1e-3, rel

@@ -2,6 +2,7 @@
 entry points on the CPU unasked, or count kernel launches it did not make."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -308,4 +309,163 @@ def test_generator_route_follows_train_mode(monkeypatch, rng):
     assert entered == [True]
     for layer in model.audio_encoder.layers()[:3]:
         assert layer.conv.weight.grad is not None and layer.conv.weight.grad.abs().sum() > 0
+
+
+
+# ---- the kernels as torch.library ops, and the serving export ----------------------
+
+def build_model_state(cfg):
+    from speechdrivestemplates_tpu_torch.models import build_model
+
+    return build_model("SequenceGeneratorCNN", cfg, device="cpu").state_dict()
+
+
+def _op_cases():
+    """Per op, two shapes: (op name, the op's arguments as (shape, dtype) or
+    plain values, the plain version on CPU tensors of those shapes)."""
+    from speechdrivestemplates_tpu_torch.ops import conv1, mel, shift_probe, stem
+
+    bf, f32 = torch.bfloat16, torch.float32
+    tables = [((400, 512), bf)] * 2 + [((256, 80), bf)] * 2
+    w2t, w3t = ((4, 4, 64, 64), bf), ((3, 3, 128, 64), bf)
+    return {
+        "mel": [([((b, n), f32), *tables],
+                 lambda t: mel.mel_spectrogram_plain(torch.zeros(*t[0].shape)))
+                for b, n in ((1, 300), (3, 16000))],
+        "conv1_in": [([((b, 80, w), f32), ((64, 1, 3, 3), f32), 0.2, dt],
+                      lambda t, dt=dt: conv1.conv1_in_plain(torch.zeros(*t[0].shape),
+                                                            torch.zeros(64, 1, 3, 3), 0.2, dt))
+                     for b, w, dt in ((1, 2, f32), (2, 101, bf))],
+        "stem": [([((b, 82, w, 64), dt), (w2t[0], dt), (w3t[0], dt), 0.2],
+                  lambda t, dt=dt: stem.stem_tail_plain(
+                      torch.zeros(*t[0].shape, dtype=dt), torch.zeros(64, 64, 4, 4),
+                      torch.zeros(128, 64, 3, 3), 0.2, dt))
+                 for b, w, dt in ((1, 2, f32), (2, 101, bf))],
+        "shift_taps": [([((n, m, c), bf), ((9, c, c), bf), m_out, True],
+                        lambda t, m_out=m_out: shift_probe.shift_taps_plain(
+                            torch.zeros(*t[0].shape, dtype=bf), torch.zeros(*t[1].shape,
+                                                                            dtype=bf), m_out))
+                       for n, m, c, m_out in ((1, 16, 64, 8), (3, 300, 128, 200))],
+    }
+
+
+@pytest.mark.parametrize("case", [0, 1])
+@pytest.mark.parametrize("name", ["mel", "conv1_in", "stem", "shift_taps"])
+def test_op_fakes_give_the_plain_versions_shapes_on_fake_cuda_tensors(name, case):
+    """Each kernel is the op ``torch.ops.sdt.<name>``; on fake CUDA tensors,
+    as ``torch.export`` traces them, its fake gives the shape and dtype of the
+    plain version's output and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from speechdrivestemplates_tpu_torch import kernels
+
+    args, plain = _op_cases()[name][case]
+    op = getattr(torch.ops.sdt, name)
+    kernels.reset_launch_counts()
+    with FakeTensorMode():
+        fakes = [torch.empty(*a[0], dtype=a[1], device="cuda") if isinstance(a, tuple) else a
+                 for a in args]
+        out = op(*fakes)
+    want = plain(fakes)
+    assert out.device.type == "cuda"
+    assert (tuple(out.shape), out.dtype) == (tuple(want.shape), want.dtype)
+    assert not kernels.LAUNCHES
+
+
+@pytest.mark.parametrize("preset, want", [
+    ("sdt_bp", {"sdt.conv1_in": 1, "sdt.mel": 1, "sdt.stem": 1}),
+    ("s2g", {"sdt.mel": 1})])
+def test_the_card_route_exports_its_kernel_ops_once_each(preset, want):
+    """The card's serving route traced by ``torch.export`` on the CPU calls
+    each kernel of the model's route once (``utils/export.py::route_ops``):
+    SDT-BP mel, conv1 and the stem, s2g (a BN encoder) the mel kernel alone.
+    The trace takes meta tensors, which the wrappers route as CUDA tensors to
+    the same ops' fakes: a CPU-only torch build has no CUDA device guard, so
+    a fake CUDA tensor cannot be indexed there (the card's build traces fake
+    CUDA tensors; the card's own export is held in chip_smoke.py)."""
+    from speechdrivestemplates_tpu_torch import config, kernels
+    from speechdrivestemplates_tpu_torch.serving import ServingModule
+    from speechdrivestemplates_tpu_torch.utils.export import graph_ops, route_ops
+
+    cfg = getattr(config, preset)(precision="bf16")
+    sd = build_model_state(cfg)
+    module = ServingModule(cfg, sd, "cpu").to("meta")
+    args = (torch.empty(2, 68267, device="meta"),)
+    if module.has_code:
+        args += (torch.empty(2, 32, device="meta"),)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        module(*args)  # the eager call export_serving_fn makes first, filling the caches
+        program = torch.export.export(module, args)
+    assert graph_ops(program) == route_ops(cfg) == want
+    assert not kernels.LAUNCHES
+    out = [n for n in program.graph.nodes if n.op == "output"][0].args[0][0].meta["val"]
+    assert tuple(out.shape) == (2, 64, 2, 121) and out.dtype == torch.float32
+
+
+def test_kernel_launches_live_in_the_op_implementations_alone():
+    """A source scan: ``data_ptr()``, the kernels' C entry points and the
+    launch counter's increment appear in ``kernels/ops.py`` alone, which
+    holds one of each per op."""
+    import re
+
+    pattern = re.compile(r"data_ptr\(|sdt_\w+_forward\(|LAUNCHES\[[^\]]*\]\s*\+=")
+    found = {str(f.relative_to(ROOT)): len(pattern.findall(f.read_text()))
+             for f in _port_sources()}
+    ops_file = "speechdrivestemplates_tpu_torch/kernels/ops.py"
+    assert {k: v for k, v in found.items() if v} == {ops_file: found[ops_file]}
+    text = (PORT / "kernels" / "ops.py").read_text()
+    assert len(re.findall(r"LAUNCHES\[[^\]]*\]\s*\+= 1", text)) == 4
+    assert len(re.findall(r"library\(\"\w+\"\)\.sdt_\w+_forward\(", text)) == 4
+
+
+def test_runner_loads_no_model_code(tmp_path):
+    """``run_artifact.py`` on an artifact, in a process of its own, leaves no
+    model, pipeline, dataset, config or serving module of the port (nor JAX)
+    in ``sys.modules``."""
+    from scipy.io import wavfile
+
+    from speechdrivestemplates_tpu_torch.config import s2g
+    from speechdrivestemplates_tpu_torch.utils.export import export_serving_fn
+
+    cfg = s2g(precision="fp32")
+    ckpt = str(tmp_path / "s2g.pth")
+    torch.save({"model_state_dict": {"module.netG." + k: v
+                                     for k, v in build_model_state(cfg).items()}}, ckpt)
+    art = str(tmp_path / "s2g.pt2")
+    export_serving_fn(cfg, ckpt, art, audio_length=16000, device="cpu")
+    wav = str(tmp_path / "in.wav")
+    wavfile.write(wav, 16000, (np.random.RandomState(0).randn(8000) * 3000).astype(np.int16))
+    runner = str(PORT / "run_artifact.py")
+    code = ("import json, runpy, sys; "
+            f"sys.argv = [{runner!r}, {art!r}, {wav!r}, {str(tmp_path / 'o.npz')!r}, "
+            "'--device', 'cpu']; runpy.run_path(sys.argv[0], run_name='__main__'); "
+            "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('speechdrivestemplates_tpu_torch',)!r})))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    loaded = json.loads(r.stdout.strip().splitlines()[-1])
+    port = "speechdrivestemplates_tpu_torch."
+    assert "speechdrivestemplates_tpu_torch.kernels.ops" in loaded
+    assert not [m for m in loaded if m.split(".")[0] != "speechdrivestemplates_tpu_torch"
+                or m.startswith(tuple(port + p for p in ("models", "pipelines", "datasets",
+                                                         "config", "serving")))], loaded
+    assert (tmp_path / "o.npz").exists()
+
+
+def test_export_needs_cuda_unless_cpu_is_asked_for(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the export runs on it")
+    from speechdrivestemplates_tpu_torch import main
+    from speechdrivestemplates_tpu_torch.config import sdt_bp
+    from speechdrivestemplates_tpu_torch.utils.export import export_serving_fn
+
+    art = tmp_path / "a.pt2"
+    for extra in ([], ["--device", "cuda"], ["--config_file", "configs/voice2pose_s2g.yaml"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main.main([*extra, "--export", str(art), "--checkpoint", str(tmp_path / "x.pth")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export_serving_fn(sdt_bp(), str(tmp_path / "x.pth"), str(art))
+    assert not art.exists()
 
