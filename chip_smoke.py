@@ -129,17 +129,37 @@ Phases, each of which must pass or the script exits non-zero:
               and load seconds, artifact bytes; (g) a streaming session off a B = 1
               artifact at the window's length (68,266 samples) launches each kernel once a
               window and is held to the windowed demo of the 24 s clip at phase 17's gate
+ 19. video    pose videos and TensorBoard images: (a) facts, not gates: matplotlib's and
+              cv2's versions, whether ffmpeg is on PATH; (b) `main --demo_input` of phase
+              11's checkpoint on the 4.27 and 10.3 s clips with TEST.SAVE_VIDEO True and
+              SYS.VIDEO_FORMAT ['mp4', 'img'] (in this process): mel, conv1, stem once a
+              clip; JAX's videos/*.mp4, *.wav and imgs/*.jpg names; the mp4s decode to 64
+              and 154 frames of 720x1280, each within a mean absolute difference of 24
+              (over the pixels either frame draws on) of its npz poses redrawn by
+              `utils/viz.py`, which a video of the other clip's poses must fail;
+              (c) `main --test_only` of phase 11's checkpoint with TEST.SAVE_VIDEO True
+              and ['tensorboard', 'mp4']: mel, conv1, stem 2 each, L2_dist equal to phase
+              13's bit for bit, test/video/1 and /2 GIFs of 64 frames at 288x512;
+              (d) `main` training SDT-BP and Pose2Pose 2 epochs on phase 10's speaker with
+              TRAIN.SAVE_VIDEO True (a result step an epoch): the pair videos of JAX's
+              names, each decoding to 64 frames; train/clip_code at
+              each epoch where matplotlib imports (else the skip line in the log);
+              (e) timed, not gated: a 64-frame pair video drawn and saved as mp4 sync and
+              async, (c)'s TensorBoard GIFs (from its log), the eval ms per batch of 32
+              with videos off and on
 Then one JSON line with every kernel's error, times, bound and launches (the mel
 kernel's count over the serving requests, the train phase's steps, the eval
 batches, phase 15's SDT-BP loops, whose CUDA graphs count a launch where it
 was captured, not where it was replayed, and phase 16's requests, steps and
-loops, phase 17's demo routes and phase 18's main path (one B = 128 artifact
+loops, phase 17's demo routes, phase 18's main path (one B = 128 artifact
 call, one s2g artifact call, the 11 windows streamed off the window
-artifact; not its reference, warm-up or timed calls); conv1's and the stem's
-over the serving requests, the eval batches, the demo routes and phase 18), the card's name and power limit, a JSON line with the train
-step's time, one with phases 12-14's numbers, one with phase 15's, one with
-phase 16's, one with phase 17's and one with phase 18's, and last {"ok":
-true, "device": {...}}.
+artifact; not its reference, warm-up or timed calls) and phase 19's demo,
+test and SDT-BP training; conv1's and the stem's over the serving requests,
+the eval batches, the demo routes, phase 18 and phase 19), the card's name
+and power limit, a JSON line with the train step's time, one with phases
+12-14's numbers, one with phase 15's, one with phase 16's, one with phase
+17's, one with phase 18's and one with phase 19's, and last {"ok": true,
+"device": {...}}.
 
 Times are CUDA-event means over repeated calls after a warm-up; inputs rotate over
 three copies so that each call reads from device memory rather than the 50 MB L2.
@@ -152,6 +172,7 @@ import glob
 import json
 import os
 import shutil
+import re
 import subprocess
 import sys
 import time
@@ -1066,7 +1087,8 @@ def main() -> None:
     out = "".join(lines) + rest
     check(proc.returncode == 143 and "Preemption checkpoint saved" in out,
           f"preempted run rc {proc.returncode}:\n{out[-4000:]}")
-    pre_ck = glob.glob(os.path.join(rruns, "*_pre", "checkpoints", "*.pth"))
+    pre_ck = glob.glob(os.path.join(rruns, "*_voice2pose_sdt_bp-TRAIN-pre", "checkpoints",
+                                    "*.pth"))
     check(len(pre_ck) == 1 and os.path.exists(resume_path(pre_ck[0])),
           f"preemption checkpoints {pre_ck}")
     pe, ps = checkpoint_key(pre_ck[0])
@@ -1818,6 +1840,209 @@ def main() -> None:
           f"(gate {STREAM_REL_L2}), corr {a_corr:.6f}; phase 18 launched {dict(p18)} and took "
           f"{export_line['export']['phase_seconds']:.1f} s", flush=True)
 
+    # ---- 19. video: pose videos, TensorBoard videos and the epoch figure ------------
+    import cv2
+
+    from speechdrivestemplates_tpu_torch import main as port_main
+    from speechdrivestemplates_tpu_torch.utils import tb_native
+    from speechdrivestemplates_tpu_torch.utils.video import VideoWriter
+
+    t19 = time.perf_counter()
+    vdir = os.path.join(work, "video")
+    shutil.rmtree(vdir, ignore_errors=True)
+    # (a) facts of this host, not gates
+    try:
+        import matplotlib
+        mpl_version = matplotlib.__version__
+    except ImportError:
+        mpl_version = None
+    facts = {"matplotlib": mpl_version, "cv2": cv2.__version__,
+             "ffmpeg_on_path": shutil.which("ffmpeg") is not None}
+    p19 = collections.Counter()
+    bp_file = os.path.join(ROOT, "configs", "voice2pose_sdt_bp.yaml")
+
+    def cli(*args):
+        """``main`` as the command line calls it, in this process (its launches
+        are counted here)."""
+        kernels.reset_launch_counts()
+        out = port_main.main(["--device", "cuda", "--tag", "video", *args])
+        torch.cuda.synchronize()
+        return out, in_counts()
+
+    def read_mp4(path):
+        cap = cv2.VideoCapture(path)
+        got = []
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                cap.release()
+                return np.stack(got) if got else np.zeros((0, 0, 0, 3), np.uint8)
+            got.append(f)
+
+    def drawn_mad(video, drawn):
+        """Mean absolute difference over the pixels that either frame draws
+        on (any channel below 250 of the white canvas), frame by frame."""
+        total = count = 0
+        for a, b in zip(video, drawn):
+            mask = (a.min(-1) < 250) | (b.min(-1) < 250)
+            d = np.abs(a.astype(np.int16) - b.astype(np.int16))[mask]
+            total, count = total + int(d.sum()), count + d.size
+        return total / count
+
+    def events_of(run_dir):
+        return tb_native.read_events(glob.glob(os.path.join(run_dir, "events.*"))[0])
+
+    # (b) the demo through the command line on the 4.27 and 10.3 s clips, mp4 + jpg
+    vcfg = apply_overrides(sdt_bp(), [])  # the canvas and scaling the run draws with
+    MAD_GATE = 24.0  # mp4v on the white 720x1280 canvas: ~4-8 on its own poses, ~60 on others
+    d19, n = cli("--config_file", bp_file, "--demo_input", f"{clips[4.27]} {clips[10.3]}",
+                 "--checkpoint", ckpt, "SYS.OUTPUT_DIR", os.path.join(vdir, "demo"),
+                 "TEST.SAVE_VIDEO", "True", "SYS.VIDEO_FORMAT", "['mp4', 'img']")
+    check(n == {"mel": 2, "conv1": 2, "stem": 2},
+          f"the video demo of 2 clips launched {n}: mel, conv1, stem once a clip")
+    p19.update(n)
+    check(os.path.basename(d19["output_dir"]).endswith("_voice2pose_sdt_bp-DEMO-video")
+          and d19["num_frames"] == [frames[4.27], frames[10.3]] == [64, 154],
+          f"video demo line {d19}")
+    demo_video, drawn = {}, {}
+    for t, sec in ((1, 4.27), (2, 10.3)):
+        stem_ = f"epoch0-DEMO-step{t}"
+        names = [os.path.join(d19["output_dir"], "videos", stem_ + ".mp4"),
+                 os.path.join(d19["output_dir"], "videos", stem_ + ".wav"),
+                 os.path.join(d19["output_dir"], "imgs", stem_ + ".jpg")]
+        check(all(os.path.exists(f) for f in names), f"demo video files of step {t}: {names}")
+        vid = read_mp4(names[0])
+        check(vid.shape == (frames[sec], 720, 1280, 3),
+              f"{stem_}.mp4 decodes to {vid.shape}, not ({frames[sec]}, 720, 1280, 3)")
+        with np.load(os.path.join(d19["output_dir"], "results", stem_ + ".npz")) as z:
+            drawn[sec] = V2P.generate_video(vcfg, z["poses_pred_batch"][0])
+        demo_video[sec] = vid
+        sr, wav = wavfile.read(names[1])
+        check(sr == 16000 and wav.shape == (demo_batch(clips[sec])["audio"].shape[-1],),
+              f"{stem_}.wav: {sr} Hz, {wav.shape}")
+    mads = {"own_4.27": drawn_mad(demo_video[4.27], drawn[4.27]),
+            "own_10.3": drawn_mad(demo_video[10.3], drawn[10.3]),
+            "other_10.3_video_vs_4.27_poses": drawn_mad(demo_video[10.3][:64], drawn[4.27]),
+            "other_4.27_video_vs_10.3_poses": drawn_mad(demo_video[4.27], drawn[10.3][:64])}
+    check(mads["own_4.27"] < MAD_GATE and mads["own_10.3"] < MAD_GATE,
+          f"the demo mp4s differ from their own redrawn poses: {mads} (gate {MAD_GATE})")
+    check(min(mads["other_10.3_video_vs_4.27_poses"],
+              mads["other_4.27_video_vs_10.3_poses"]) >= MAD_GATE,
+          f"a video of the other clip's poses passes the gate: {mads} (gate {MAD_GATE})")
+    print(f"[video-demo] main --demo_input of 2 clips with TEST.SAVE_VIDEO True, mp4 + img: "
+          f"launches {dict(n)}; videos/, .wav and imgs/ under JAX's names; mp4s decode to "
+          f"64 and 154 frames of 720x1280; mean abs diff over drawn pixels vs the npz poses "
+          f"redrawn: {mads['own_4.27']:.3f}, {mads['own_10.3']:.3f} (gate < {MAD_GATE}); the "
+          f"other clip's: {mads['other_10.3_video_vs_4.27_poses']:.3f}, "
+          f"{mads['other_4.27_video_vs_10.3_poses']:.3f} (must fail)", flush=True)
+    del demo_video, drawn
+
+    seconds = {"demo": time.perf_counter() - t19}
+
+    # (c) --test_only with videos into TensorBoard and mp4: the metrics phase 13 read
+    t0 = time.perf_counter()
+    tv, n = cli("--config_file", bp_file, "--test_only", "--checkpoint", ckpt, *eopts,
+                "TEST.SAVE_VIDEO", "True", "SYS.VIDEO_FORMAT", "['tensorboard', 'mp4']",
+                "SYS.NUM_WORKERS", "2", "SYS.OUTPUT_DIR", os.path.join(vdir, "test"))
+    check(n == {"mel": 2, "conv1": 2, "stem": 2},
+          f"the test run with videos over 2 eval batches launched {n}")
+    p19.update(n)
+    tm = tv["metrics"]
+    check(tm["L2_dist"] == em["L2_dist"],
+          f"test L2_dist with videos {tm['L2_dist']!r} != phase 13's {em['L2_dist']!r}")
+    test_metrics_equal = tm == em
+    gifs = [e for e in events_of(tv["output_dir"]) if "png" in e]
+    check([(e["tag"], e["step"]) for e in gifs] == [("test/video/1", 0), ("test/video/2", 0)],
+          f"test video summaries {[(e['tag'], e['step']) for e in gifs]}")
+    for e in gifs:
+        g = tb_native.gif_decode(e["png"])
+        check(g.shape == (64, 288, 512, 3), f"{e['tag']} GIF decodes to {g.shape}")
+    check(sorted(os.listdir(os.path.join(tv["output_dir"], "videos"))) == sorted(
+        f"epoch0-TEST-step{t}.{x}" for t in (1, 2) for x in ("mp4", "wav")),
+        f"test videos {os.listdir(os.path.join(tv['output_dir'], 'videos'))}")
+    with open(glob.glob(os.path.join(tv["output_dir"], "*.log"))[0]) as f:
+        gif_s = [float(x) for x in re.findall(r"Saved tensorboard videos in ([0-9.]+) s", f.read())]
+    seconds["test"] = time.perf_counter() - t0
+    print(f"[video-test] --test_only with TEST.SAVE_VIDEO True, tensorboard + mp4: launches "
+          f"{dict(n)}; L2_dist {tm['L2_dist']!r} = phase 13's bit for bit (all metrics equal: "
+          f"{test_metrics_equal}); test/video/1 and /2 decode to 64 frames of 288x512",
+          flush=True)
+
+    # (d) two epochs of SDT-BP and Pose2Pose with TRAIN.SAVE_VIDEO on phase 10's speaker,
+    # a result step (and its video) an epoch
+    t0 = time.perf_counter()
+    train_videos = {}
+    for cfg_file, want in ((bp_file, {"mel": 4, "conv1": 0, "stem": 0}),
+                           (os.path.join(ROOT, "configs", "pose2pose.yaml"),
+                            {"mel": 0, "conv1": 0, "stem": 0})):
+        tr, n = cli("--config_file", cfg_file, *opts, "TRAIN.SAVE_VIDEO", "True",
+                    "TRAIN.NUM_EPOCHS", "2", "TRAIN.NUM_RESULT_SAMPLE", "1",
+                    "SYS.NUM_WORKERS", "2", "SYS.OUTPUT_DIR", os.path.join(vdir, "train"))
+        name = os.path.basename(cfg_file).split(".")[0]
+        check(n == want and tr["steps"] == 4, f"{name} training with videos: {n}, {tr}")
+        p19.update(n)
+        vids = sorted(os.listdir(os.path.join(tr["output_dir"], "videos")))
+        check(vids == sorted(f"epoch{e}-TRAIN-step2.{x}" for e in (1, 2) for x in ("mp4", "wav")),
+              f"{name} train videos {vids}")
+        check(read_mp4(os.path.join(tr["output_dir"], "videos", vids[0])).shape
+              == (64, 720, 1280, 3), f"{name} {vids[0]} does not decode to 64 frames")
+        figs = [(e["tag"], e["step"]) for e in events_of(tr["output_dir"]) if "png" in e]
+        with open(os.path.join(tr["output_dir"], f"{name}-TRAIN-video.log")) as f:
+            skipped = f.read().count("epoch plotting: skipped, matplotlib does not import")
+        check(figs == [("train/clip_code", 1), ("train/clip_code", 2)] if mpl_version
+              else (figs == [] and skipped == 2), f"{name}: figures {figs}, skip lines {skipped}")
+        train_videos[name] = {"launches": dict(n), "videos": len(vids) // 2, "figures": figs}
+    seconds["train"] = time.perf_counter() - t0
+    print(f"[video-train] 2 epochs with TRAIN.SAVE_VIDEO True: {train_videos}", flush=True)
+
+    # (e) timed, not gated: one 64-frame pair video drawn and saved (mp4), sync and
+    # async; (c)'s TensorBoard GIFs, from its log; the eval ms per batch of 32, videos
+    # off and on
+    t_e = time.perf_counter()
+    with np.load(os.path.join(tv["output_dir"], "results", "epoch0-TEST-step1.npz")) as z:
+        pred, gt = z["poses_pred_batch"][0], z["poses_gt_batch"][0]
+    times = {}
+    for mode in ("sync", "async"):
+        vc = apply_overrides(sdt_bp(), ["SYS.VIDEO_FORMAT", "['mp4']",
+                                        "SYS.ASYNC_VIDEO_SAVING", str(mode == "async")])
+        vw = VideoWriter(vc)
+        t0 = time.perf_counter()
+        vw.save_video(vc, "TEST", V2P.generate_video_pair(vc, pred, gt), 1, 0, audio=None,
+                      base_path=os.path.join(vdir, f"timed_{mode}"))
+        times[f"draw_and_save_{mode}_ms"] = (time.perf_counter() - t0) * 1e3
+        vw.close()
+        times[f"until_written_{mode}_ms"] = (time.perf_counter() - t0) * 1e3
+        check(os.path.exists(os.path.join(vdir, f"timed_{mode}", "videos",
+                                          "epoch0-TEST-step1.mp4")), f"{mode} video not written")
+    times["tensorboard_gif_ms"] = [x * 1e3 for x in gif_s]
+    estate = Voice2PoseTrainState(apply_overrides(sdt_bp(), list(eopts)), None, dev)
+    estate.load_pth(ckpt)
+    eb32 = [next(iter(trainer.eval_loader(apply_overrides(estate.cfg, ["SYS.NUM_WORKERS",
+                                                                       "0"]))))] * 2
+    estate.cfg.TEST.SAVE_VIDEO = False
+    trainer.evaluate(estate, eb32, 0)  # warm-up
+    for on in (False, True):
+        estate.cfg.TEST.SAVE_VIDEO = on
+        ew = VideoWriter(estate.cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.evaluate(estate, eb32, 0, os.path.join(vdir, f"eval_{on}"), None, ew)
+        torch.cuda.synchronize()
+        ew.close()
+        times[f"eval_ms_per_batch32_videos_{'on' if on else 'off'}"] = \
+            (time.perf_counter() - t0) * 1e3 / len(eb32)
+    del estate, eb32
+    seconds["timed"] = time.perf_counter() - t_e
+    for name, v in p19.items():
+        report[name]["launches"] += v
+    video_line = {"video": {"card": card, "facts": facts, "demo_drawn_mad": mads,
+                            "demo_mad_gate": MAD_GATE, "test_l2_equals_phase13": True,
+                            "test_metrics_all_equal": test_metrics_equal,
+                            "train": train_videos, "times": times, "launches": dict(p19),
+                            "seconds": seconds, "phase_seconds": time.perf_counter() - t19}}
+    print(f"[video] {facts}; ms: {times}; seconds: {seconds}; phase 19 launched {dict(p19)} "
+          f"and took {video_line['video']['phase_seconds']:.1f} s", flush=True)
+
     # ---- summary -----------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1830,6 +2055,7 @@ def main() -> None:
     print(json.dumps(s2g_line))
     print(json.dumps(demo_line))
     print(json.dumps(export_line))
+    print(json.dumps(video_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

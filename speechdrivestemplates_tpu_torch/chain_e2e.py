@@ -96,7 +96,7 @@ def main(argv=None) -> dict:
         sys.stderr.write(r.stdout[-4000:] + r.stderr[-8000:])
         raise SystemExit(f"stage {args.stage}: main exited {r.returncode}")
     summary = json.loads(r.stdout.strip().splitlines()[-1])
-    log = glob.glob(os.path.join(summary["output_dir"], f"{args.stage}.log"))[0]
+    log = glob.glob(os.path.join(summary["output_dir"], "*.log"))[0]  # <cfg_name>-<MODE>-<tag>
     with open(log) as f:
         epochs = [(int(n), float(s)) for n, s in _EPOCH.findall(f.read())]
     line = {"stage": args.stage, "wall_s": wall, "summary": summary}
@@ -105,7 +105,7 @@ def main(argv=None) -> dict:
         line.update(steps=steps, train_s=seconds, steps_per_s=steps / seconds)
     if args.keep:
         os.makedirs(args.keep, exist_ok=True)
-        shutil.copy(log, args.keep)
+        shutil.copy(log, os.path.join(args.keep, f"{args.stage}.log"))
         if summary.get("checkpoint") and args.stage != "test":
             shutil.copy(summary["checkpoint"], os.path.join(args.keep, f"{args.stage}.pth"))
     ok = True

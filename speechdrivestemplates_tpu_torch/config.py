@@ -1,19 +1,35 @@
-"""The configuration keys this port reads, as plain dataclasses.
+"""The configuration tree, as plain dataclasses, and the config-file loader.
 
-Names and defaults follow the JAX package's yacs tree (``cfg.VOICE2POSE.
-GENERATOR.NORM`` and so on) so a reader finds each key's counterpart; only the
-keys the ported slices read exist here. The presets stand for the repository's
-``configs/*.yaml`` (the port reads no YAML): ``sdt_bp()`` (the flagship,
-``configs/voice2pose_sdt_bp.yaml``), ``sdt_vae()``, ``s2g()`` and
-``pose2pose()``, the Voice2Pose ones at ``TRAIN.PRECISION='bf16'``; ``preset_for_config_file`` picks
-one by the file's name. ``apply_overrides`` merges a flat ``KEY VALUE`` list as
-yacs' ``merge_from_list`` does.
+Keys and defaults are the JAX package's yacs tree (``get_cfg_defaults()``,
+``cfg.VOICE2POSE.GENERATOR.NORM`` and so on), every key of it. ``load_config``
+reads ``--config_file`` as the JAX ``main.py`` does: the defaults, then the
+YAML file, then a flat ``KEY VALUE`` override list (``apply_overrides``, yacs'
+``merge_from_list``), each leaf decoded and type-checked as yacs does. The
+file is read by ``read_yaml``, the port's reader of the YAML subset that
+``configs/*.yaml`` use (the card's host has no PyYAML); anything outside the
+subset raises with its line number. Two defaults are the port's own: a
+Voice2Pose file that leaves TRAIN.PRECISION unset trains at the flagship's
+bf16, and DATASET.SPEAKER is 'oliver' where the file leaves it unset (JAX's
+dataset refuses a None speaker, so no run JAX accepts reads otherwise).
+
+Keys the port reads and ignores or refuses (``check_config``): the five
+parallel keys (SYS.DISTRIBUTED, WORLD_SIZE, MASTER_ADDR, MASTER_PORT,
+MESH.DATA) raise NotImplementedError away from their defaults; the XLA-only
+keys (SYS.MEL_IMPL, FUSED_STEM, CONV_MM_GRAD, DEBUG_NANS, PLATFORM,
+COMPILE_CACHE_DIR), CLIP_CODE.TRAIN and STRICT_LOADING change nothing the
+port computes and are named by ``ignored_keys`` where set; DATASET.NAME must
+be 'GestureDataset'.
+
+The presets stand for the repository's ``configs/*.yaml`` in code (the tests
+and the chip smoke run build them without a file): ``sdt_bp()`` (the
+flagship, ``configs/voice2pose_sdt_bp.yaml``), ``sdt_vae()``, ``s2g()`` and
+``pose2pose()``, each equal to ``load_config`` of its file.
 """
 
 from __future__ import annotations
 
 import ast
-import os
+import re
 from dataclasses import dataclass, field, fields, is_dataclass
 from typing import Optional
 
@@ -22,6 +38,7 @@ from typing import Optional
 class ClipCodeConfig:
     DIMENSION: Optional[int] = None
     LR_SCALING: float = 1.0
+    TRAIN: bool = True  # read nowhere by JAX: the learned bank trains either way
     FRAME_VARIANT: bool = False
     SAMPLE_FROM_NORMAL: bool = False
     TEST_WITH_GT_CODE: bool = False
@@ -56,6 +73,7 @@ class PoseDiscriminatorConfig:
 
 @dataclass
 class Voice2PoseConfig:
+    STRICT_LOADING: bool = True  # JAX: restore checkpoint keys the state lacks; see ignored_keys
     GENERATOR: GeneratorConfig = field(default_factory=GeneratorConfig)
     POSE_ENCODER: PoseEncoderConfig = field(default_factory=PoseEncoderConfig)
     POSE_DISCRIMINATOR: PoseDiscriminatorConfig = field(
@@ -79,6 +97,7 @@ class Pose2PoseConfig:
 
 @dataclass
 class DatasetConfig:
+    NAME: str = "GestureDataset"  # the only dataset, in the port as in JAX
     ROOT_DIR: str = "datasets/speakers"
     SUBSET: Optional[int] = None
     NUM_LANDMARKS: int = 121
@@ -145,12 +164,32 @@ class ProfileConfig:
 
 
 @dataclass
+class MeshConfig:
+    DATA: int = -1  # not ported: ROADMAP.md queue A, item 14
+
+
+@dataclass
 class SysConfig:
     OUTPUT_DIR: str = "output/"
+    CANVAS_SIZE: tuple = (720, 1280)  # (H, W) of a pose video's frames
+    VISUALIZATION_SCALING: float = 0.85  # pixel-space poses are drawn at this scale
+    VIDEO_FORMAT: list = field(default_factory=lambda: ["mp4", "img"])  # of VIDEO_FORMATS
+    ASYNC_VIDEO_SAVING: bool = False  # videos drawn here, saved by a worker thread
     LOG_INTERVAL: int = 100  # steps between log lines
-    SEED: int = 0
     NUM_WORKERS: int = 8  # loader worker processes (0: load in the training process)
+    DISTRIBUTED: bool = False  # the parallel keys: ROADMAP.md queue A, item 14
+    WORLD_SIZE: int = 1
+    MASTER_ADDR: str = "localhost"
+    MASTER_PORT: int = 21379
+    MESH: MeshConfig = field(default_factory=MeshConfig)
+    SEED: int = 0
+    MEL_IMPL: str = "auto"  # the XLA-only keys: read and ignored
+    FUSED_STEM: bool = False
+    CONV_MM_GRAD: bool = False
     PROFILE: ProfileConfig = field(default_factory=ProfileConfig)
+    DEBUG_NANS: bool = False
+    PLATFORM: str = ""
+    COMPILE_CACHE_DIR: str = "~/.cache/sdt_jax"
 
 
 @dataclass
@@ -215,49 +254,301 @@ def pose2pose(speaker: Optional[str] = "oliver", precision: str = "fp32") -> Con
 
 PRESETS = {"voice2pose_sdt_bp": sdt_bp, "voice2pose_sdt_vae": sdt_vae,
            "voice2pose_s2g": s2g, "pose2pose": pose2pose}
+DEFAULT_SPEAKER = "oliver"
+VIDEO_FORMATS = ("tensorboard", "mp4", "img")
+PARALLEL_KEYS = ("SYS.DISTRIBUTED", "SYS.WORLD_SIZE", "SYS.MASTER_ADDR", "SYS.MASTER_PORT",
+                 "SYS.MESH.DATA")
+XLA_ONLY_KEYS = ("SYS.MEL_IMPL", "SYS.FUSED_STEM", "SYS.CONV_MM_GRAD", "SYS.DEBUG_NANS",
+                 "SYS.PLATFORM", "SYS.COMPILE_CACHE_DIR")
+# what JAX does with these keys changes nothing the port computes (see ignored_keys)
+NO_OP_KEYS = ("VOICE2POSE.STRICT_LOADING", "VOICE2POSE.GENERATOR.CLIP_CODE.TRAIN")
 
 
-def preset_for_config_file(path: str) -> Config:
-    """The preset named like ``configs/<name>.yaml`` (the file is not read)."""
-    name = os.path.splitext(os.path.basename(path))[0]
-    if name not in PRESETS:
-        raise ValueError(f"no preset for config file {path!r}; the port has "
-                         f"{sorted(f'configs/{n}.yaml' for n in PRESETS)}")
-    return PRESETS[name]()
+# ---- the YAML subset of configs/*.yaml -------------------------------------------------
+
+class YAMLSubsetError(ValueError):
+    """A construct outside the YAML subset that ``read_yaml`` reads."""
 
 
-def _decode(value: str):
-    """A command-line value as a Python literal where it parses as one, else
-    the string itself (yacs' ``_decode_cfg_value``)."""
+# PyYAML's (YAML 1.1) implicit resolvers, to refuse what they would type otherwise
+_YAML_INT = re.compile(r"[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)"
+                       r"|[-+]?0x[0-9a-fA-F_]+|[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+")
+_YAML_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                         r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
+                         r"|[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*"
+                         r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN)")
+_YAML_TIMESTAMP = re.compile(r"[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}")
+_INT = re.compile(r"[-+]?(?:0|[1-9][0-9]*)")
+_FLOAT = re.compile(r"[-+]?[0-9]+\.[0-9]*(?:[eE][-+][0-9]+)?")
+_BOOLS = {**dict.fromkeys(("yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"), True),
+          **dict.fromkeys(("no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF"),
+                          False)}
+_NULLS = ("", "~", "null", "Null", "NULL")
+_KEY_LINE = re.compile(r"([A-Za-z_][A-Za-z0-9_]*):(?=\s|$)")
+
+
+def _plain_scalar(text: str, where: str, flow: bool = False):
+    """An unquoted scalar as PyYAML's safe_load types it: null, bool, a
+    decimal int, a float with a dot (YAML 1.1: ``1e-4`` stays a string, which
+    yacs' decoding later makes a float), else a string."""
+    if text in _NULLS:
+        return None
+    if text in _BOOLS:
+        return _BOOLS[text]
+    if _INT.fullmatch(text):
+        return int(text)
+    if _FLOAT.fullmatch(text):
+        return float(text)
+    bad = ",[]{}#&*!|>%@`'\"" if flow else "[]{}#&*!|>%@`,"
+    if (_YAML_INT.fullmatch(text) or _YAML_FLOAT.fullmatch(text)
+            or _YAML_TIMESTAMP.match(text) or text in ("=", "<<") or text[0] in bad
+            or (text[0] in "-?:" and (len(text) == 1 or text[1] == " "))
+            or ": " in text or text.endswith(":") or " #" in text or "\t" in text):
+        raise YAMLSubsetError(f"{where}: {text!r} is outside the YAML subset this reader "
+                              "takes (quote it if it is a string)")
+    return text
+
+
+def _quoted(text: str, where: str):
+    """A quoted scalar at the start of ``text`` -> (string, the rest of the line)."""
+    q, out, i = text[0], [], 1
+    while i < len(text):
+        c = text[i]
+        if c == q:
+            if q == "'" and text[i + 1:i + 2] == "'":
+                out.append("'")
+                i += 2
+                continue
+            return "".join(out), text[i + 1:]
+        if q == '"' and c == "\\":
+            esc = {"\\": "\\", '"': '"', "n": "\n", "t": "\t"}.get(text[i + 1:i + 2])
+            if esc is None:
+                raise YAMLSubsetError(f"{where}: escape {text[i:i + 2]!r} is outside the "
+                                      "YAML subset")
+            out.append(esc)
+            i += 2
+            continue
+        out.append(c)
+        i += 1
+    raise YAMLSubsetError(f"{where}: a quoted scalar must close on its line")
+
+
+def _flow_list(text: str, where: str):
+    """A one-line flow sequence of scalars at the start of ``text`` -> (list,
+    the rest of the line)."""
+    items, i, cur = [], 1, ""
+    while i < len(text):
+        c = text[i]
+        if c in "'\"" and not cur.strip():
+            value, rest = _quoted(text[i:], where)
+            items.append(value)
+            i = len(text) - len(rest)
+            cur = None  # a quoted item is complete
+            continue
+        if c in ",]":
+            if cur is not None and cur.strip():
+                items.append(_plain_scalar(cur.strip(), where, flow=True))
+            elif cur is not None and c == ",":  # ``[a, ]`` and ``[]`` close without one
+                raise YAMLSubsetError(f"{where}: an empty item in a flow sequence")
+            if c == "]":
+                return items, text[i + 1:]
+            cur = ""
+        elif c in "[{}":
+            raise YAMLSubsetError(f"{where}: nested flow collections are outside the YAML "
+                                  "subset")
+        elif cur is None:
+            if not c.isspace():
+                raise YAMLSubsetError(f"{where}: text after a quoted item in a flow sequence")
+        else:
+            cur += c
+        i += 1
+    raise YAMLSubsetError(f"{where}: a flow sequence must close on its line")
+
+
+def _value(text: str, where: str):
+    if text[0] in "'\"":
+        value, rest = _quoted(text, where)
+    elif text[0] == "[":
+        value, rest = _flow_list(text, where)
+    else:
+        end = text.find(" #")
+        value, rest = _plain_scalar((text if end < 0 else text[:end]).rstrip(), where), ""
+    if rest.strip() and not re.match(r"\s+#", rest):
+        raise YAMLSubsetError(f"{where}: unexpected text {rest.strip()!r} after the value")
+    return value
+
+
+def parse_yaml(text: str, name: str = "<yaml>"):
+    """The YAML subset of ``configs/*.yaml``: nested block mappings of plain
+    keys, ``#`` comments, and values that are quoted or plain scalars (null,
+    bools, ints, floats, strings) or one-line flow sequences of them. Returns
+    what ``yaml.safe_load`` would (None for a file of comments); anything
+    outside the subset raises ``YAMLSubsetError`` naming the line."""
+    root: dict = {}
+    # open mappings: [indent of their keys (None until the first), the dict, its key]
+    frames = [[None, root, None]]
+    seen = False
+    for ln, raw in enumerate(text.splitlines(), 1):
+        where = f"{name}:{ln}"
+        body = raw.lstrip(" ")
+        if not body.strip() or body.startswith("#"):
+            continue
+        if body[0] == "\t" or body.startswith(("---", "...", "%", "- ", "? ")) or body == "-":
+            raise YAMLSubsetError(f"{where}: tabs, documents, directives, block sequences and "
+                                  "complex keys are outside the YAML subset")
+        indent, seen = len(raw) - len(body), True
+        top = frames[-1]
+        if top[0] is None:
+            parent = frames[-2][0] if len(frames) > 1 else -1
+            if indent > parent:
+                top[0] = indent
+            else:  # ``KEY:`` with nothing under it is null
+                frames.pop()
+                frames[-1][1][top[2]] = None
+        while indent < frames[-1][0]:
+            frames.pop()
+        if indent != frames[-1][0]:
+            raise YAMLSubsetError(f"{where}: indentation {indent} matches no open mapping")
+        m = _KEY_LINE.match(body)
+        if m is None:
+            raise YAMLSubsetError(f"{where}: expected 'KEY:' or 'KEY: value' with a plain key")
+        key, rest = m.group(1), body[m.end():]
+        node = frames[-1][1]
+        if key in node:
+            raise YAMLSubsetError(f"{where}: duplicate key {key!r}")
+        if not rest.strip() or rest.lstrip().startswith("#"):
+            node[key] = {}
+            frames.append([None, node[key], key])
+        else:
+            node[key] = _value(rest.strip(), where)
+    if len(frames) > 1 and frames[-1][0] is None:
+        frames[-2][1][frames[-1][2]] = None
+    return root if seen else None
+
+
+def read_yaml(path: str):
+    """``parse_yaml`` of the file at ``path``."""
+    with open(path) as f:
+        return parse_yaml(f.read(), path)
+
+
+# ---- merging -----------------------------------------------------------------------
+
+def _decode(value):
+    """A string value as a Python literal where it parses as one, else the
+    string itself; other values as they are (yacs' ``_decode_cfg_value``)."""
+    if not isinstance(value, str):
+        return value
     try:
         return ast.literal_eval(value)
     except (ValueError, SyntaxError):
         return value
 
 
-def apply_overrides(cfg: Config, opts: list) -> Config:
-    """Merge ``["KEY", "VALUE", ...]`` into ``cfg`` in place and return it.
+def _coerce(old, new, key: str):
+    """yacs' ``_check_and_coerce_cfg_value_type``: the new value must have the
+    old one's type, unless either is None; a list and a tuple convert into
+    each other and an int into a float."""
+    if type(new) is type(old) or old is None or new is None:
+        return new
+    for src, dst in ((tuple, list), (list, tuple), (int, float)):
+        if type(new) is src and type(old) is dst:
+            return dst(new)
+    raise ValueError(f"Type mismatch ({type(old)} vs. {type(new)}) with values "
+                     f"({old} vs. {new}) for config key: {key}")
 
-    Each value is decoded as a literal and must have the type of the key's
-    current value; as in yacs, a key whose value is None takes any type, an
-    int is accepted for a float key, and anything else raises."""
+
+def _leaf_parent(cfg, key: str):
+    *path, leaf = key.split(".")
+    node = cfg
+    for part in path:
+        node = getattr(node, part, None)
+        if not is_dataclass(node):
+            raise KeyError(f"Non-existent config key: {key}")
+    if leaf not in {f.name for f in fields(node)} or is_dataclass(getattr(node, leaf)):
+        raise KeyError(f"Non-existent config key: {key}")
+    return node, leaf
+
+
+def get_key(cfg, key: str):
+    """The value of a dotted key, e.g. ``get_key(cfg, "SYS.MESH.DATA")``."""
+    node, leaf = _leaf_parent(cfg, key)
+    return getattr(node, leaf)
+
+
+def apply_overrides(cfg: Config, opts: list) -> Config:
+    """Merge ``["KEY", "VALUE", ...]`` into ``cfg`` in place and return it, as
+    yacs' ``merge_from_list``: each value decoded as a literal, then held to
+    the key's type by ``_coerce``."""
     if len(opts) % 2:
         raise ValueError(f"overrides must be KEY VALUE pairs, got {opts}")
     for key, raw in zip(opts[0::2], opts[1::2]):
-        *path, leaf = key.split(".")
-        node = cfg
-        for part in path:
-            node = getattr(node, part, None)
-            if not is_dataclass(node):
-                raise KeyError(f"Non-existent config key: {key}")
-        if leaf not in {f.name for f in fields(node)} or is_dataclass(getattr(node, leaf)):
-            raise KeyError(f"Non-existent config key: {key}")
-        old, new = getattr(node, leaf), _decode(raw)
-        if type(new) is not type(old) and old is not None and new is not None:
-            if type(new) is int and type(old) is float:
-                new = float(new)
-            else:
-                raise ValueError(f"Type mismatch ({type(old)} vs. {type(new)}) with "
-                                 f"values ({old} vs. {new}) for config key: {key}")
-        setattr(node, leaf, new)
+        node, leaf = _leaf_parent(cfg, key)
+        setattr(node, leaf, _coerce(getattr(node, leaf), _decode(raw), key))
     return cfg
+
+
+def merge_tree(cfg: Config, tree: dict, prefix: str = "") -> Config:
+    """Merge a loaded YAML mapping into ``cfg`` in place, as yacs'
+    ``merge_from_file``: every leaf decoded and type-checked."""
+    for k, v in tree.items():
+        key = prefix + str(k)
+        if isinstance(v, dict):
+            node = getattr(cfg, k, None) if is_dataclass(cfg) else None
+            if not is_dataclass(node):
+                raise KeyError(f"Non-existent config key (or not a node): {key}")
+            merge_tree(node, v, key + ".")
+        else:
+            if not hasattr(cfg, k) or is_dataclass(getattr(cfg, k)):
+                raise KeyError(f"Non-existent config key: {key}")
+            setattr(cfg, k, _coerce(getattr(cfg, k), _decode(v), key))
+    return cfg
+
+
+def load_config(path: Optional[str] = None, opts=()) -> Config:
+    """The JAX ``main.py``'s configuration: the defaults, the YAML file at
+    ``path``, then the ``KEY VALUE`` overrides; without a file, the SDT-BP
+    preset (``configs/voice2pose_sdt_bp.yaml``'s tree). ``check_config``
+    holds the result."""
+    if path:
+        tree = read_yaml(path) or {}
+        cfg = Config()
+        cfg.DATASET.SPEAKER = DEFAULT_SPEAKER
+        merge_tree(cfg, tree)
+        if cfg.PIPELINE_TYPE == "Voice2Pose" and "PRECISION" not in (tree.get("TRAIN") or {}):
+            cfg.TRAIN.PRECISION = "bf16"
+    else:
+        cfg = sdt_bp()
+    apply_overrides(cfg, list(opts))
+    check_config(cfg)
+    return cfg
+
+
+def check_config(cfg: Config) -> None:
+    """Raise for a key the port does not run: NotImplementedError for a
+    parallel key away from its default, ValueError for another dataset or an
+    unknown video format."""
+    defaults = Config()
+    for key in PARALLEL_KEYS:
+        if get_key(cfg, key) != get_key(defaults, key):
+            raise NotImplementedError(
+                f"{key} {get_key(cfg, key)!r}: data parallelism is not ported yet: ROADMAP.md "
+                f"queue A, item 14; the port runs one process on one device")
+    if cfg.DATASET.NAME != "GestureDataset":
+        raise ValueError(f"DATASET.NAME {cfg.DATASET.NAME!r}: the port has 'GestureDataset' "
+                         "only, as JAX's dataset registry does")
+    unknown = [f for f in cfg.SYS.VIDEO_FORMAT if f not in VIDEO_FORMATS]
+    if unknown:
+        raise ValueError(f"SYS.VIDEO_FORMAT {cfg.SYS.VIDEO_FORMAT}: {unknown} not of "
+                         f"{VIDEO_FORMATS}")
+
+
+def ignored_keys(cfg: Config) -> list:
+    """The keys set away from their defaults that the port reads and ignores:
+    the XLA-only ones, CLIP_CODE.TRAIN (which JAX reads nowhere) and
+    STRICT_LOADING (JAX keeps a restored checkpoint's keys that its state
+    lacks, or with False skips them; the port loads each module it has
+    strictly and never carries a part it has no module for)."""
+    defaults = Config()
+    return [f"{k} {get_key(cfg, k)!r}" for k in XLA_ONLY_KEYS + NO_OP_KEYS
+            if get_key(cfg, k) != get_key(defaults, k)]

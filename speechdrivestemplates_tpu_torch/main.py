@@ -6,22 +6,25 @@
         [--test_only --checkpoint CKPT.pth] [--resume_from CKPT|RUN_DIR]
         [--pretrain_from CKPT.pth] [--device cuda|cpu] [--tag T] [KEY VALUE ...]
 
-``--config_file`` picks the preset of that name (``config.preset_for_config_file``:
-``configs/pose2pose.yaml``, ``configs/voice2pose_sdt_bp.yaml``,
-``configs/voice2pose_sdt_vae.yaml``, ``configs/voice2pose_s2g.yaml``; the file
-itself is not read), SDT-BP without one; the ``KEY VALUE`` overrides of
-``config.apply_overrides`` follow, e.g. ``DATASET.ROOT_DIR datasets/speakers
-TRAIN.NUM_EPOCHS 100``. Videos are
-not ported yet, so ``TRAIN.SAVE_VIDEO False`` is required, and ``TEST.SAVE_VIDEO
-False`` where the run evaluates (``--test_only``, or ``TRAIN.VALIDATE`` True).
+The configuration is the JAX ``main.py``'s (``config.load_config``): the
+defaults, then ``--config_file`` (any YAML file in the subset that
+``configs/*.yaml`` use; without one, ``configs/voice2pose_sdt_bp.yaml``'s
+tree), then the ``KEY VALUE`` overrides, e.g. ``DATASET.ROOT_DIR
+datasets/speakers TRAIN.NUM_EPOCHS 100``. A run writes into
+``<SYS.OUTPUT_DIR>/<datetime>_<cfg_name>-{TRAIN,TEST,DEMO}-<tag>/``, JAX's
+name: ``cfg_name`` is the config file's basename (``voice2pose_sdt_bp``
+without one) and ``--tag`` defaults to ''; TRAIN.AUTO_RESUME continues the
+newest checkpoint of that exact name. Pose videos and TensorBoard images
+follow TRAIN.SAVE_VIDEO, TEST.SAVE_VIDEO and SYS.VIDEO_FORMAT
+(``utils/video.py``).
 ``--demo_input`` runs the demo of ``--checkpoint`` on a wav, a space-separated
 list of wavs or a directory of them (DEMO.NUM_SAMPLES of it), at any length up
-to DATASET.MAX_DEMO_LENGTH seconds (``pipelines/trainer.py::demo``; it needs
-``TEST.SAVE_VIDEO False``, and for Pose2Pose DEMO.CODE_PATH);
+to DATASET.MAX_DEMO_LENGTH seconds (``pipelines/trainer.py::demo``; for
+Pose2Pose it needs DEMO.CODE_PATH);
 ``--test_only`` evaluates ``--checkpoint`` on the val split instead of training.
 ``--export PATH`` writes ``--checkpoint``'s wav -> pose serving function at
 (``--export_batch``, DATASET.AUDIO_LENGTH) to a ``torch.export`` artifact and
-its ``PATH.json`` sidecar (``utils/export.py``; Voice2Pose presets only), for
+its ``PATH.json`` sidecar (``utils/export.py``; Voice2Pose only), for
 the device that ``--device`` names: on the card its graph calls the kernels,
 on the CPU the plain route; ``run_artifact.py`` serves it. The export takes
 precedence over the demo, the demo over the test, the test over training, as
@@ -29,7 +32,7 @@ in the JAX ``main.py``. ``--resume_from`` continues
 a run from a checkpoint the port wrote (a ``.pth`` with its resume file, its
 run directory or ``checkpoints/``), in that run's directory; ``--pretrain_from``
 (TRAIN.PRETRAIN_FROM) starts a new run from a ``.pth``'s weights with fresh
-optimizers; TRAIN.AUTO_RESUME True continues this tag's newest checkpoint.
+optimizers.
 Runs on the card unless ``--device cpu`` is given, and raises without one.
 Prints one JSON line at the end: a training run's steps, last losses, last
 checkpoint (which the serving command line loads, given the same
@@ -44,8 +47,9 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 
-from .config import apply_overrides, preset_for_config_file, sdt_bp
+from .config import ignored_keys, load_config
 from .pipelines.trainer import demo, test, train
 from .utils.device import resolve_device
 from .utils.export import export_serving_fn
@@ -55,7 +59,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m speechdrivestemplates_tpu_torch.main",
                                  description="train, test, demo or export (the port, PyTorch/CUDA)")
     ap.add_argument("--config_file", default="", metavar="FILE",
-                    help="configs/<name>.yaml: the preset of that name (default SDT-BP)")
+                    help="a YAML config file, e.g. configs/voice2pose_sdt_bp.yaml (the "
+                         "default's tree)")
     ap.add_argument("--test_only", action="store_true",
                     help="evaluate --checkpoint on the val split instead of training")
     ap.add_argument("--demo_input", default=None, metavar="WAV|DIR",
@@ -75,7 +80,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--pretrain_from", default=None,
                     help="start training from this .pth's weights (TRAIN.PRETRAIN_FROM)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--tag", default="sdt_bp", help="name of the run's output directory")
+    ap.add_argument("--tag", default="",
+                    help="tag for the experiment: the run is <cfg_name>-<MODE>-<tag>")
     ap.add_argument("opts", nargs="*", metavar="KEY VALUE", help="config overrides")
     args = ap.parse_args(argv)
 
@@ -85,25 +91,32 @@ def main(argv=None) -> dict:
     if args.checkpoint and not (args.export or args.test_only or args.demo_input):
         ap.error("--checkpoint is read by --export, --test_only and --demo_input only")
     try:
-        cfg = preset_for_config_file(args.config_file) if args.config_file else sdt_bp()
-        cfg = apply_overrides(cfg, args.opts)
-    except (KeyError, ValueError) as e:
+        cfg = load_config(args.config_file, args.opts)
+    except (KeyError, ValueError, OSError) as e:
         ap.error(str(e))
     if args.pretrain_from is not None:
         cfg.TRAIN.PRETRAIN_FROM = args.pretrain_from
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s [%(levelname)-0.5s] %(message)s")
+    ignored = ignored_keys(cfg)
+    if ignored:
+        logging.getLogger(__name__).info("read and ignored (nothing in the port depends on "
+                                         "them): %s", ", ".join(ignored))
+    # JAX's exp_tag (its main.py): the config file's basename, the mode, the tag
+    cfg_name = (os.path.basename(args.config_file).split(".")[0] if args.config_file
+                else "voice2pose_sdt_bp")
     if args.export:
         if cfg.PIPELINE_TYPE != "Voice2Pose":
             ap.error(f"--export: {cfg.PIPELINE_TYPE} has no audio input to serve")
         summary = export_serving_fn(cfg, args.checkpoint, args.export,
                                     batch_size=args.export_batch, device=device)
     elif args.demo_input:
-        summary = demo(cfg, args.checkpoint, args.demo_input, args.tag, device)
+        summary = demo(cfg, args.checkpoint, args.demo_input, f"{cfg_name}-DEMO-{args.tag}",
+                       device)
     elif args.test_only:
-        summary = test(cfg, args.checkpoint, args.tag, device)
+        summary = test(cfg, args.checkpoint, f"{cfg_name}-TEST-{args.tag}", device)
     else:
-        summary = train(cfg, args.tag, device, args.resume_from)
+        summary = train(cfg, f"{cfg_name}-TRAIN-{args.tag}", device, args.resume_from)
     print(json.dumps(summary))
     return summary
 

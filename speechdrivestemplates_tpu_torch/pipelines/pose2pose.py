@@ -10,7 +10,9 @@ They persist in the checkpoint, whose encoder is Voice2Pose's frozen FGD
 encoder (``VOICE2POSE.POSE_ENCODER.AE_CHECKPOINT``) and whose ``clip_code_mu``
 is SDT-VAE's template bank. The step runs poses only: no kernel. The demo
 (``demo_step``) decodes an external code, ``np.load(DEMO.CODE_PATH)["v"][i] *
-10``, as the reference and the JAX package do.
+10``, as the reference and the JAX package do. Videos are drawn by
+Voice2Pose's ``generate_video*``; the epoch figure ``train/clip_code`` is
+``clip_code_mu``'s 2-D PCA.
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ from ..models import build_model
 from ..ops.pose import get_final_results, multiply_batch, step_metrics
 from ..utils.device import resolve_device
 from ..utils.weights import check_bank_rows, read_pth
-from .voice2pose import (eval_mode, load_train_state, make_adam, make_scheduler, mel_buffers,
-                         save_pth, step_schedulers, train_state_dict)
+from .voice2pose import (code_figure, eval_mode, load_train_state, make_adam, make_scheduler,
+                         mel_buffers, save_pth, step_schedulers, train_state_dict)
 
 DEVICE_KEYS = ("poses", "clip_index", "speaker_stat")
 
@@ -202,3 +204,8 @@ def demo_step(state: Pose2PoseTrainState, batch: Dict[str, object],
         pred, mu, logvar = state.ae(None, cfg.DATASET.NUM_FRAMES, code, generator=state.rng)
     return {"poses_pred_batch": _final(b, pred, cfg), "clip_code_mu": mu,
             "clip_code_logvar": logvar}
+
+
+def draw_figure_epoch(state: Pose2PoseTrainState) -> Dict[str, object]:
+    """``{"clip_code": figure}`` of the ``clip_code_mu`` bank."""
+    return {"clip_code": code_figure(state.clip_code_mu.float().cpu().numpy())}

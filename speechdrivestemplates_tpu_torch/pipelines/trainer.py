@@ -2,10 +2,17 @@
 
 Counterpart of the JAX package's ``Trainer`` (``pipelines/trainer.py``),
 single process; ``PIPELINE_TYPE`` picks Voice2Pose or Pose2Pose. A run writes
-into ``<SYS.OUTPUT_DIR>/<datetime>_<tag>/``: the log ``<tag>.log``; a
+into ``<SYS.OUTPUT_DIR>/<datetime>_<tag>/`` (``main.py`` passes JAX's
+``<cfg_name>-{TRAIN,TEST,DEMO}-<tag>``): the log ``<tag>.log``; a
 TensorBoard event file (``utils/tb_native.py``: ``train/lr_<k>`` and
-``train/<loss>`` every SYS.LOG_INTERVAL steps, ``train/epoch_time`` and
-``train/ETA`` per epoch, ``val/<metric>``, ``test/<metric>``); in training,
+``train/<loss>`` every SYS.LOG_INTERVAL steps, ``train/epoch_time``,
+``train/ETA`` and the ``train/clip_code`` figure per epoch, ``val/<metric>``,
+``test/<metric>``); with TRAIN.SAVE_VIDEO / TEST.SAVE_VIDEO, beside each
+result archive's step, the pose video of clip 0 (pred | gt in training and
+evaluation, the prediction and its filmstrip in the demo) into the sinks of
+SYS.VIDEO_FORMAT (``utils/video.py``: ``train/video``,
+``{val,test}/video/<step>``, ``videos/*.mp4`` and ``.wav``, ``imgs/*.jpg``);
+in training,
 every TRAIN.CHECKPOINT_INTERVAL epochs, after the validation (TRAIN.VALIDATE)
 ``checkpoints/checkpoint_epoch-E_step-S.pth`` in the reference layout and its
 resume file (``pipelines/checkpoint.py``); with TRAIN.SAVE_NPZ /
@@ -46,11 +53,14 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..config import check_config
 from ..datasets.gesture_dataset import (CachedLoader, EpochBatches, GestureDataset, collate,
                                         to_torch)
 from ..ops.fgd import compute_fgd
 from ..utils.device import resolve_device
 from ..utils.tb_native import NativeTBWriter
+from ..utils.video import VideoWriter
+from ..utils.viz import draw_pose_frames_in_long_img
 from ..utils.weights import read_pth
 from . import pose2pose, voice2pose
 from .checkpoint import (checkpoint_name, find_auto_resume_candidates, read_resume,
@@ -58,17 +68,20 @@ from .checkpoint import (checkpoint_name, find_auto_resume_candidates, read_resu
 from .graphed import ChunkRunner, index_tensor
 
 log = logging.getLogger(__name__)
+PORT_LOG = logging.getLogger(__name__.split(".")[0])  # a run's log file takes the port's lines
 
 PIPELINES = {
     "Voice2Pose": SimpleNamespace(state=voice2pose.Voice2PoseTrainState,
                                   train_step=voice2pose.train_step,
                                   eval_step=voice2pose.eval_step,
                                   demo_step=voice2pose.demo_step,
+                                  draw_figure_epoch=voice2pose.draw_figure_epoch,
                                   device_keys=voice2pose.DEVICE_KEYS),
     "Pose2Pose": SimpleNamespace(state=pose2pose.Pose2PoseTrainState,
                                  train_step=pose2pose.train_step,
                                  eval_step=pose2pose.eval_step,
                                  demo_step=pose2pose.demo_step,
+                                 draw_figure_epoch=pose2pose.draw_figure_epoch,
                                  device_keys=pose2pose.DEVICE_KEYS),
 }
 FGD_KEYS = ("mu_pred", "logvar_pred", "mu_gt", "logvar_gt")
@@ -83,20 +96,26 @@ def pipeline(cfg) -> SimpleNamespace:
 
 
 def check_trainer_options(cfg, evaluates: bool, demo: bool = False) -> None:
-    """Raise for what the port lacks: NotImplementedError for the options not
-    ported yet (TEST.SAVE_VIDEO only where the run evaluates or is a demo,
-    TRAIN.SAVE_VIDEO where it is not a demo, DEMO.SEQUENCE_PARALLEL in a
-    demo), ValueError for an unknown pipeline or option value."""
+    """Raise for what the port lacks: NotImplementedError for the
+    sequence-parallel demo and the parallel keys (``config.check_config``),
+    not ported yet, ValueError for an unknown pipeline or option value, and
+    ImportError where the run saves videos (TEST.SAVE_VIDEO where it
+    evaluates or is a demo, TRAIN.SAVE_VIDEO where it trains) and cv2 does
+    not import."""
     pipeline(cfg)
-    todo = {"TRAIN.SAVE_VIDEO": (not demo and cfg.TRAIN.SAVE_VIDEO, "pose videos", 13),
-            "TEST.SAVE_VIDEO": ((evaluates or demo) and cfg.TEST.SAVE_VIDEO, "pose videos",
-                                13),
-            "DEMO.SEQUENCE_PARALLEL": (demo and cfg.DEMO.SEQUENCE_PARALLEL,
-                                       "the sequence-parallel demo", 14)}
-    for key, (on, what, item) in todo.items():
-        if on:
-            raise NotImplementedError(f"{key} True ({what}) is not ported yet: ROADMAP.md "
-                                      f"queue A, item {item}; pass {key} False")
+    check_config(cfg)
+    if demo and cfg.DEMO.SEQUENCE_PARALLEL:
+        raise NotImplementedError("DEMO.SEQUENCE_PARALLEL True (the sequence-parallel demo) is "
+                                  "not ported yet: ROADMAP.md queue A, item 14; pass "
+                                  "DEMO.SEQUENCE_PARALLEL False")
+    videos = ((cfg.TRAIN.SAVE_VIDEO and not demo)
+              or (cfg.TEST.SAVE_VIDEO and (evaluates or demo)))
+    if videos and cfg.SYS.VIDEO_FORMAT:
+        try:
+            import cv2  # noqa: F401
+        except ImportError as e:
+            raise ImportError(f"pose videos (TRAIN.SAVE_VIDEO, TEST.SAVE_VIDEO) are drawn with "
+                              f"cv2, which does not import ({e}); pass them False") from e
     if cfg.DATASET.DEVICE_CACHE not in DEVICE_CACHE_MODES:
         raise ValueError(f"DATASET.DEVICE_CACHE {cfg.DATASET.DEVICE_CACHE!r}: one of "
                          f"{DEVICE_CACHE_MODES}")
@@ -218,6 +237,47 @@ def _line(values: Dict[str, object]) -> str:
     return "".join(f"{k}: {float(v):.5f}  " for k, v in values.items())
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def save_pair_video(video: VideoWriter, cfg, tag: str, step: int, epoch: int,
+                    global_step: Optional[int], batch, results, writer, base_path: str) -> None:
+    """Clip 0's pred | gt video and audio, fetched alone from the device, to
+    the run's video sinks (the JAX ``_save_step_artifacts``' video)."""
+    frames = voice2pose.generate_video_pair(cfg, _host(results["poses_pred_batch"][0]),
+                                            _host(results["poses_gt_batch"][0]))
+    audio = batch.get("audio")
+    video.save_video(cfg, tag, frames, step, epoch, global_step,
+                     audio=None if audio is None else _host(audio[0]), writer=writer,
+                     base_path=base_path)
+
+
+def save_demo_video(video: VideoWriter, cfg, step: int, batch, results, writer, base_path: str,
+                    extra_id: Optional[int] = None) -> None:
+    """Clip 0's predicted video, its filmstrip and its audio to the run's
+    video sinks (the JAX ``demo_step``'s video)."""
+    pred = _host(results["poses_pred_batch"][0])
+    audio = batch.get("audio")
+    video.save_video(cfg, "DEMO", voice2pose.generate_video(cfg, pred), step, 0,
+                     long_img=draw_pose_frames_in_long_img(pred.transpose(0, 2, 1)),
+                     audio=None if audio is None else _host(audio[0]), writer=writer,
+                     base_path=base_path, extra_id=extra_id)
+
+
+def epoch_figures(p, state) -> Dict[str, object]:
+    """The pipeline's figures at an epoch's end (``{}`` and a log line where
+    matplotlib does not import)."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        log.info("[TRAIN] epoch plotting: skipped, matplotlib does not import (%s)", e)
+        return {}
+    figures = p.draw_figure_epoch(state)
+    log.info("[TRAIN] epoch plotting: %s", ", ".join(figures) or "nothing")
+    return figures
+
+
 class Preemption:
     """With TRAIN.CHECKPOINT_ON_PREEMPT, a SIGTERM handler that sets ``flag``;
     the old handler comes back on exit. A non-main thread cannot install one
@@ -300,16 +360,19 @@ class TrainLoop:
     archives with TRAIN.SAVE_NPZ; a preemption check after every step or
     chunk; the profiler window; the schedulers' step at the epoch's end. With
     ``collect``, ``history`` keeps every step's loss row (device tensors, in
-    ``names``' order)."""
+    ``names``' order). With TRAIN.SAVE_VIDEO and ``video``, a pair video at
+    each result archive's step (never from the device cache, which declines
+    while videos are saved)."""
 
     def __init__(self, state, loader, cache: Optional[dict] = None, chunk: int = 1,
                  base_path: Optional[str] = None, writer=None,
                  preempt: Optional[Preemption] = None, profiler: Optional[Profiler] = None,
-                 collect: bool = False):
+                 collect: bool = False, video: Optional[VideoWriter] = None):
         self.state, self.loader, self.cache = state, loader, cache
         self.cfg = state.cfg
         self.step_fn = pipeline(self.cfg).train_step
         self.base_path, self.writer, self.preempt = base_path, writer, preempt
+        self.video = video
         self.profiler = profiler or Profiler(self.cfg, base_path, state.device)
         self.chunk = chunk if cache is not None else 1
         self.runner = None if cache is None else ChunkRunner(
@@ -343,8 +406,12 @@ class TrainLoop:
                 self.history.append(torch.stack([losses[k].float() for k in self.names])[None])
             if t % cfg.SYS.LOG_INTERVAL == 0:
                 self._log_step(epoch, t, n, global_step, losses)
-            if cfg.TRAIN.SAVE_NPZ and self.base_path is not None and t % every == 0:
-                save_results(self.base_path, "TRAIN", t, epoch, results)
+            if self.base_path is not None and t % every == 0:
+                if cfg.TRAIN.SAVE_NPZ:
+                    save_results(self.base_path, "TRAIN", t, epoch, results)
+                if cfg.TRAIN.SAVE_VIDEO and self.video is not None:
+                    save_pair_video(self.video, cfg, "TRAIN", t, epoch, global_step, batch,
+                                    results, self.writer, self.base_path)
             self._check_preempt(epoch, global_step)
         return global_step, losses
 
@@ -400,12 +467,15 @@ class TrainLoop:
 
 
 def evaluate(state, loader: torch.utils.data.DataLoader, epoch: int = 0,
-             base_path: Optional[str] = None, writer=None) -> Dict[str, float]:
+             base_path: Optional[str] = None, writer=None,
+             video: Optional[VideoWriter] = None) -> Dict[str, float]:
     """One pass of the pipeline's eval step over ``loader`` (epoch 0: a test
     run, tagged TEST; else a validation, VAL). Returns the epoch's losses and
     metrics, each batch weighted by its true sample count, and FGD_mu and
     FGD_mu_logvar when the pipeline gives pose-encoder latents; each goes to
-    ``writer`` as ``val/<k>`` or ``test/<k>`` at step ``epoch``."""
+    ``writer`` as ``val/<k>`` or ``test/<k>`` at step ``epoch``. With
+    TEST.SAVE_VIDEO and ``video``, a pair video at each result archive's
+    step."""
     cfg = state.cfg
     tag = "TEST" if epoch == 0 else "VAL"
     eval_fn = pipeline(cfg).eval_step
@@ -426,8 +496,12 @@ def evaluate(state, loader: torch.utils.data.DataLoader, epoch: int = 0,
         if t % cfg.SYS.LOG_INTERVAL == 0:
             log.info(f"[{tag}] epoch: {epoch}/{cfg.TRAIN.NUM_EPOCHS}  step: {t}/{n_batches}  "
                      + _line(losses))
-        if cfg.TEST.SAVE_NPZ and base_path is not None and t % every == 0:
-            save_results(base_path, tag, t, epoch, results)
+        if base_path is not None and t % every == 0:
+            if cfg.TEST.SAVE_NPZ:
+                save_results(base_path, tag, t, epoch, results)
+            if cfg.TEST.SAVE_VIDEO and video is not None:
+                save_pair_video(video, cfg, tag, t, epoch, None, batch, results, writer,
+                                base_path)
     metrics = {k: float(v) / num for k, v in sums.items()}
     if all(latents[k] for k in FGD_KEYS):
         lat = {k: np.concatenate(v) for k, v in latents.items()}
@@ -448,9 +522,11 @@ def evaluate(state, loader: torch.utils.data.DataLoader, epoch: int = 0,
 class _RunDir:
     """``<SYS.OUTPUT_DIR>/<datetime>_<tag>/`` (or ``path``, an existing run's
     directory, which a resume writes on into) and its log file, attached to
-    this module's logger while the run lasts, and its TensorBoard writer."""
+    the port's logger while the run lasts, its TensorBoard writer and its
+    video writer, whose queue is drained when the run ends."""
 
     def __init__(self, cfg, tag: str, subdirs=(), path: Optional[str] = None):
+        self.cfg = cfg
         if path is None:
             stamp = str(datetime.now()).replace(".", "-").replace(":", "-").replace(" ", "_")
             path = os.path.join(cfg.SYS.OUTPUT_DIR, f"{stamp}_{tag}")
@@ -460,18 +536,22 @@ class _RunDir:
             os.makedirs(os.path.join(self.path, d), exist_ok=True)
         self.handler = logging.FileHandler(os.path.join(self.path, f"{tag}.log"))
         self.handler.setFormatter(logging.Formatter("%(asctime)s [%(levelname)-0.5s] %(message)s"))
-        self.writer = None
+        self.writer = self.video = None
 
     def __enter__(self):
-        log.addHandler(self.handler)
-        log.setLevel(logging.INFO)  # the run's log file takes every line
+        PORT_LOG.addHandler(self.handler)
+        PORT_LOG.setLevel(logging.INFO)  # the run's log file takes every line
         self.writer = NativeTBWriter(self.path)
+        self.video = VideoWriter(self.cfg)
         return self
 
     def __exit__(self, *exc):
-        self.writer.close()
-        log.removeHandler(self.handler)
-        self.handler.close()
+        try:
+            self.video.close()  # the queued videos, written before the event file closes
+        finally:
+            self.writer.close()
+            PORT_LOG.removeHandler(self.handler)
+            self.handler.close()
 
 
 def _auto_resume(cfg, tag: str) -> Optional[str]:
@@ -552,7 +632,8 @@ def train(cfg, tag: str = "train", device="cuda",
                         cache_line.split(": ", 1)[1])
         log.info("Training begins: %s, %d train clips, %d steps an epoch, device %s",
                  cfg.PIPELINE_TYPE, len(loader.dataset), len(loader), state.device)
-        loop = TrainLoop(state, loader, cache, K, run.path, run.writer, preempt, profiler)
+        loop = TrainLoop(state, loader, cache, K, run.path, run.writer, preempt, profiler,
+                         video=run.video)
         epoch_times = []
         try:
             while epoch < cfg.TRAIN.NUM_EPOCHS:
@@ -562,7 +643,7 @@ def train(cfg, tag: str = "train", device="cuda",
                 if epoch % cfg.TRAIN.CHECKPOINT_INTERVAL == 0:
                     if val is not None:
                         log.info("Validation begins!")
-                        metrics = evaluate(state, val, epoch, run.path, run.writer)
+                        metrics = evaluate(state, val, epoch, run.path, run.writer, run.video)
                     # after the validation, whose draws the resume file's generator holds
                     checkpoint = checkpoint_path(run.path, epoch, global_step)
                     save_checkpoint(state, checkpoint, epoch, global_step)
@@ -577,6 +658,8 @@ def train(cfg, tag: str = "train", device="cuda",
                 log.info("[TRAIN] epoch_time: %.2f hours  ETA: %.2f hours", took / 3600, eta)
                 run.writer.add_scalar("train/epoch_time", took / 3600, epoch)
                 run.writer.add_scalar("train/ETA", eta, epoch)
+                for k, fig in epoch_figures(p, state).items():
+                    run.writer.add_figure(f"train/{k}", fig, epoch)
                 run.writer.flush()
         finally:
             profiler.close(global_step)
@@ -605,7 +688,7 @@ def test(cfg, checkpoint: str, tag: str = "test", device="cuda") -> Dict[str, ob
     with _RunDir(cfg, tag) as run:
         log.info("Testing begins: %s from %s, %d clips, device %s", cfg.PIPELINE_TYPE,
                  checkpoint, len(loader.dataset), state.device)
-        metrics = evaluate(state, loader, 0, run.path, run.writer)
+        metrics = evaluate(state, loader, 0, run.path, run.writer, run.video)
     return {"metrics": metrics, "num_samples": len(loader.dataset),
             "checkpoint": checkpoint, "output_dir": run.path}
 
@@ -649,6 +732,9 @@ def demo(cfg, checkpoint: str, demo_input: str, tag: str = "demo",
                 results = p.demo_step(state, batch, coeff)
                 if cfg.TEST.SAVE_NPZ:
                     paths.append(save_results(run.path, "DEMO", t, 0, results, extra_id))
+                if cfg.TEST.SAVE_VIDEO:
+                    save_demo_video(run.video, cfg, t, batch, results, run.writer, run.path,
+                                    extra_id)
         if state.device.type == "cuda":
             torch.cuda.synchronize(state.device)
         took = time.perf_counter() - tic

@@ -62,6 +62,14 @@ its own length, through the mel, conv1 and stem kernels on the card.
 DEMO.LENGTH_BUCKET_S is read and ignored: the JAX package pads a clip to a
 length bucket only to bound its compiles, and its trimmed output equals the
 unpadded one to numerical precision; an eager forward compiles nothing.
+
+The host-side artifacts (the JAX hooks of the same names): ``generate_video``
+and ``generate_video_pair`` draw one clip's pixel-space poses at
+SYS.VISUALIZATION_SCALING on SYS.CANVAS_SIZE (``utils/viz.py``), for
+``utils/video.py``; ``draw_figure_epoch`` is the bank's 2-D PCA (``_pca_2d``,
+numpy) as a scatter figure, ``train/clip_code`` at each epoch's end, where
+the generator takes codes (a frame-variant bank's (N, dim, T) codes as N*T
+rows).
 """
 
 from __future__ import annotations
@@ -80,6 +88,7 @@ from ..ops.mel import _mel_filterbank_np, mel_spectrogram, mel_spectrogram_plain
 from ..ops.pose import (get_final_results, multiply_batch, step_metrics,
                         transform_normalized_parted2global)
 from ..utils.device import resolve_device
+from ..utils.viz import vis_relative_pose_clip, vis_relative_pose_pair_clip
 from ..utils.weights import (check_bank_rows, external_code_bank, pose_encoder_from_ae_pth,
                              read_pth)
 from .checkpoint import atomic_save
@@ -656,3 +665,48 @@ def demo_step(state: Voice2PoseTrainState, batch: Dict[str, object],
         return windowed_demo_forward(state, batch, num_frames, interpolation_coeff, plain)
     return eval_step(state, batch, plain=plain, num_frames=num_frames,
                      interpolation_coeff=interpolation_coeff)[1]
+
+
+# ---- host-side artifacts: videos and the epoch figure ------------------------------
+
+def generate_video(cfg, poses: np.ndarray) -> np.ndarray:
+    """(T, 2, K) pixel-space poses -> (T, H, W, 3) BGR frames."""
+    return vis_relative_pose_clip(poses * cfg.SYS.VISUALIZATION_SCALING, cfg.SYS.CANVAS_SIZE)
+
+
+def generate_video_pair(cfg, pred: np.ndarray, gt: np.ndarray) -> np.ndarray:
+    """Two (T, 2, K) clips side by side -> (T, H, W, 3) BGR frames."""
+    s = cfg.SYS.VISUALIZATION_SCALING
+    return vis_relative_pose_pair_clip(pred * s, gt * s, cfg.SYS.CANVAS_SIZE)
+
+
+def _pca_2d(x: np.ndarray) -> np.ndarray:
+    """The rows of ``x`` on their first two principal axes (SVD of the
+    centred rows)."""
+    x = x - x.mean(axis=0, keepdims=True)
+    _, _, vt = np.linalg.svd(x, full_matrices=False)
+    return x @ vt[:2].T
+
+
+def code_figure(code: np.ndarray):
+    """The scatter of ``code``'s rows on their first two principal axes, a
+    matplotlib figure on an Agg canvas (pyplot's global state untouched)."""
+    from matplotlib.backends.backend_agg import FigureCanvasAgg
+    from matplotlib.figure import Figure
+
+    fig = Figure()
+    FigureCanvasAgg(fig)
+    xy = _pca_2d(code)
+    fig.add_subplot().scatter(xy[:, 0], xy[:, 1], alpha=0.2, edgecolors="none", s=1)
+    fig.tight_layout()
+    return fig
+
+
+def draw_figure_epoch(state: Voice2PoseTrainState) -> Dict[str, object]:
+    """``{"clip_code": figure}`` of the bank, or ``{}`` for a code-less generator."""
+    if state.clips_code is None:
+        return {}
+    code = state.clips_code.detach().float().cpu().numpy()
+    if code.ndim == 3:
+        code = code.transpose(0, 2, 1).reshape(-1, code.shape[1])
+    return {"clip_code": code_figure(code)}

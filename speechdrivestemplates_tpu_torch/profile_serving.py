@@ -3,8 +3,8 @@
     python -m speechdrivestemplates_tpu_torch.profile_serving [--batch 128] [--iters 5]
         [--config_file configs/NAME.yaml] [--artifact]
 
-Runs the bf16 serving function of the Voice2Pose preset ``--config_file``
-names, as ``main.py`` picks it (SDT-BP by default; seeded weights, random
+Runs the bf16 serving function of the Voice2Pose config file ``--config_file``,
+read as ``main.py`` reads it (SDT-BP by default; seeded weights, random
 audio, and a random code where the model takes one) under ``torch.profiler``
 and prints one JSON line: the forward's mean time from CUDA events, the
 device-busy time per forward and the idle share, the host ms a call (the
@@ -30,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from .config import preset_for_config_file, sdt_bp
+from .config import load_config
 from .models import build_model
 from .serving import ServingModule, build_serving_fn
 from .utils.device import resolve_device
@@ -87,15 +87,15 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--config_file", default="", metavar="FILE",
-                    help="configs/<name>.yaml: the Voice2Pose preset (default SDT-BP)")
+                    help="a Voice2Pose config file (default: SDT-BP's tree)")
     ap.add_argument("--artifact", action="store_true",
                     help="also the exported artifact, with and without its runtime checks")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
 
-    cfg = preset_for_config_file(args.config_file) if args.config_file else sdt_bp()
+    cfg = load_config(args.config_file)
     if cfg.PIPELINE_TYPE != "Voice2Pose":
-        ap.error(f"--config_file {args.config_file}: not a Voice2Pose preset")
+        ap.error(f"--config_file {args.config_file}: not a Voice2Pose configuration")
     sd = build_model(cfg.VOICE2POSE.GENERATOR.NAME, cfg, device="cpu",
                      generator=torch.Generator().manual_seed(0)).state_dict()
     fn, has_code = build_serving_fn(cfg, sd, dev)

@@ -3,8 +3,8 @@
     python -m speechdrivestemplates_tpu_torch.profile_train [--batch 32] [--iters 5]
         [--device-cache] [--steps-per-dispatch K] [--config_file configs/NAME.yaml]
 
-Builds the bf16 train state of the preset that ``--config_file`` names, as
-``main.py`` picks it (SDT-BP by default; ``configs/voice2pose_s2g.yaml`` for
+Builds the bf16 train state of the config file ``--config_file``, read as
+``main.py`` reads it (SDT-BP by default; ``configs/voice2pose_s2g.yaml`` for
 s2g-GAN; weights seeded with 0, a train set of 64 clips) and runs
 ``pipelines.voice2pose.train_step`` on a device-resident batch (random audio
 and normalized poses, the speaker's statistics), first timed by CUDA events,
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from . import kernels
-from .config import preset_for_config_file, sdt_bp
+from .config import load_config
 from .datasets.speakers_stat import get_speaker_stat
 from .ops.stem import stem_plain
 from .pipelines.graphed import ChunkRunner
@@ -88,7 +88,7 @@ def main(argv=None) -> None:
     ap.add_argument("--steps-per-dispatch", type=int, default=1, metavar="K",
                     help="K > 1: K steps in one CUDA graph (needs --device-cache)")
     ap.add_argument("--config_file", default="", metavar="FILE",
-                    help="configs/<name>.yaml: the Voice2Pose preset (default SDT-BP)")
+                    help="a Voice2Pose config file (default: SDT-BP's tree)")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     K = args.steps_per_dispatch
@@ -96,9 +96,9 @@ def main(argv=None) -> None:
         ap.error("--steps-per-dispatch > 1 needs --device-cache")
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = preset_for_config_file(args.config_file) if args.config_file else sdt_bp()
+    cfg = load_config(args.config_file)
     if cfg.PIPELINE_TYPE != "Voice2Pose":
-        ap.error(f"--config_file {args.config_file}: not a Voice2Pose preset")
+        ap.error(f"--config_file {args.config_file}: not a Voice2Pose configuration")
     num_train = 64
     state = Voice2PoseTrainState(cfg, num_train, dev, capturable=K > 1)
     batch = train_batch(cfg, args.batch, num_train, dev)

@@ -16,9 +16,10 @@ Command line (one wav request; a reference-layout ``.pth`` checkpoint):
         [--config_file configs/NAME.yaml] [--code-seed N] [--device cuda|cpu]
         [--speaker oliver]
 
-``--config_file`` picks the Voice2Pose preset the checkpoint was trained with,
-as ``main.py`` picks it (``configs/voice2pose_sdt_bp.yaml``, the default,
-``configs/voice2pose_sdt_vae.yaml`` or ``configs/voice2pose_s2g.yaml``).
+``--config_file`` is the Voice2Pose config file the checkpoint was trained
+with, read as ``main.py`` reads it (``configs/voice2pose_sdt_bp.yaml``'s tree
+by default; ``configs/voice2pose_sdt_vae.yaml``, ``configs/voice2pose_s2g.yaml``
+or an edited copy).
 The wav is read as the demo reads it (``utils.audio.load_wav``: scipy's
 reader, mono, ``resample_poly`` to 16 kHz); audio longer than
 DATASET.AUDIO_LENGTH is cropped, shorter audio zero-padded (the demo,
@@ -36,7 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .config import preset_for_config_file, sdt_bp
+from .config import load_config
 from .datasets.speakers_stat import get_speaker_stat
 from .models import build_model
 from .ops.mel import mel_spectrogram
@@ -101,7 +102,7 @@ def main(argv=None) -> None:
         description="wav -> poses with a Voice2Pose generator checkpoint")
     ap.add_argument("checkpoint", help="reference-layout .pth (module.netG.* keys)")
     ap.add_argument("--config_file", default="", metavar="FILE",
-                    help="configs/<name>.yaml: the checkpoint's preset (default SDT-BP)")
+                    help="the checkpoint's config file (default: SDT-BP's tree)")
     ap.add_argument("wav")
     ap.add_argument("out", help="output npz (poses in pixel space)")
     ap.add_argument("--code-seed", type=int, default=0,
@@ -112,11 +113,11 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     try:
-        cfg = preset_for_config_file(args.config_file) if args.config_file else sdt_bp()
-    except ValueError as e:
+        cfg = load_config(args.config_file)
+    except (KeyError, ValueError) as e:
         ap.error(str(e))
     if cfg.PIPELINE_TYPE != "Voice2Pose":
-        ap.error(f"--config_file {args.config_file}: not a Voice2Pose preset")
+        ap.error(f"--config_file {args.config_file}: not a Voice2Pose configuration")
     cfg.DATASET.SPEAKER = args.speaker
     fn, has_code = build_serving_fn(cfg, load_reference_pth(args.checkpoint), device)
 

@@ -47,7 +47,7 @@ def test_pose2pose_sdt_bp_test_only_sdt_vae(tmp_path, capsys):
     assert bp["steps"] == 4
     val = bp["val_metrics"]  # the last epoch's validation
     assert {"L2_dist", "lip_sync_error_n", "FGD_mu", "FGD_mu_logvar"} <= set(val)
-    with open(glob.glob(os.path.join(bp["output_dir"], "bp.log"))[0]) as f:
+    with open(glob.glob(os.path.join(bp["output_dir"], "voice2pose_sdt_bp-TRAIN-bp.log"))[0]) as f:
         assert f.read().count("val_time:") == 2  # a validation an epoch (CHECKPOINT_INTERVAL 1)
     assert sorted(os.listdir(os.path.join(bp["output_dir"], "results"))) == [
         f"epoch{e}-VAL-step{s}.npz" for e in (1, 2) for s in (1, 2)]
@@ -78,12 +78,13 @@ def test_cli_refuses_what_it_lacks(tmp_path):
         port_main.main(["--device", "cpu", "--checkpoint", "x.pth"])  # without --test_only
     with pytest.raises(SystemExit):
         port_main.main(["--device", "cpu", "--config_file", "configs/other.yaml"])
-    with pytest.raises(NotImplementedError, match="TRAIN.SAVE_VIDEO True .* item 13"):
+    # the parallel keys (item 14) away from their defaults, before anything is written
+    with pytest.raises(NotImplementedError, match="SYS.DISTRIBUTED True.* item 14"):
         port_main.main(["--device", "cpu", "--config_file", "configs/voice2pose_s2g.yaml",
-                        "SYS.OUTPUT_DIR", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="TEST.SAVE_VIDEO True .* item 13"):
+                        "SYS.OUTPUT_DIR", str(tmp_path), "SYS.DISTRIBUTED", "True"])
+    with pytest.raises(NotImplementedError, match="SYS.MESH.DATA 4.* item 14"):
         port_main.main(["--device", "cpu", "--test_only", "--checkpoint", "x.pth",
-                        "TRAIN.SAVE_VIDEO", "False", "SYS.OUTPUT_DIR", str(tmp_path)])
+                        "SYS.OUTPUT_DIR", str(tmp_path), "SYS.MESH.DATA", "4"])
     assert not os.listdir(tmp_path)
 
 

@@ -47,17 +47,24 @@ def test_preset_equals_the_jax_config_file(name):
     assert C.PRESETS[name]().DATASET.SPEAKER == "oliver"
 
 
-def test_config_file_names_pick_the_presets():
+def test_config_file_names_pick_the_presets(tmp_path):
+    """Each ``configs/<name>.yaml``, read by ``load_config``, is the preset of
+    that name, and no file is SDT-BP. A file of another name is read as JAX
+    reads it (when the port picked a preset by the file's name, it raised
+    ValueError for one)."""
     for name, fn in C.PRESETS.items():
-        assert C.preset_for_config_file(f"configs/{name}.yaml") == fn()
-    assert C.preset_for_config_file("voice2pose_sdt_vae.yaml").VOICE2POSE.GENERATOR.CLIP_CODE.EXTERNAL_CODE
+        assert C.load_config(os.path.join(CONFIG_DIR, f"{name}.yaml")) == fn()
+    assert C.load_config("") == C.load_config(None) == C.sdt_bp()
+    vae = C.load_config(os.path.join(CONFIG_DIR, "voice2pose_sdt_vae.yaml"))
+    assert vae.VOICE2POSE.GENERATOR.CLIP_CODE.EXTERNAL_CODE
     assert C.pose2pose().TRAIN.PRECISION == "fp32" and C.sdt_vae().TRAIN.PRECISION == "bf16"
-    g = C.preset_for_config_file("configs/voice2pose_s2g.yaml")
+    g = C.load_config(os.path.join(CONFIG_DIR, "voice2pose_s2g.yaml"))
     assert g == C.s2g() and g.TRAIN.PRECISION == "bf16" and g.VOICE2POSE.GENERATOR.NORM == "BN"
     assert g.VOICE2POSE.GENERATOR.CLIP_CODE.DIMENSION is None
     assert g.VOICE2POSE.POSE_DISCRIMINATOR.NAME == "PoseSequenceDiscriminator"
-    with pytest.raises(ValueError, match="no preset for config file"):
-        C.preset_for_config_file("configs/my_model.yaml")
+    mine = tmp_path / "my_model.yaml"
+    mine.write_text(open(os.path.join(CONFIG_DIR, "voice2pose_s2g.yaml")).read())
+    assert C.load_config(str(mine)) == C.s2g()
 
 
 def test_new_keys_parse_like_yacs():

@@ -234,12 +234,14 @@ def test_overrides_parse_like_yacs():
 
 
 @pytest.mark.parametrize("opts,match", [
-    (["TRAIN.SAVE_VIDEO", "True"], "item 13"),
-    (["TRAIN.VALIDATE", "True", "TEST.SAVE_VIDEO", "True"], "item 13"),
+    (["SYS.DISTRIBUTED", "True"], "item 14"),
+    (["TRAIN.VALIDATE", "True", "SYS.MESH.DATA", "2"], "item 14"),
     (["PIPELINE_TYPE", "Pose2Pose", "POSE2POSE.AUTOENCODER.NAME", "Autoencoder",
-      "TRAIN.SAVE_VIDEO", "True"], "item 13"),
+      "SYS.WORLD_SIZE", "2"], "item 14"),
 ])
 def test_unported_options_raise_naming_the_roadmap(speaker_root, tmp_path, opts, match):
+    """What the port has not ported refuses before anything is written: since
+    the videos (item 13) are ported, the parallel keys (item 14)."""
     from speechdrivestemplates_tpu_torch.pipelines.trainer import train
 
     base = ["TRAIN.VALIDATE", "False", "TRAIN.SAVE_VIDEO", "False",

@@ -62,7 +62,7 @@ def test_demo_cli_matches_jax_demo(tmp_path, bp_ckpt, capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line == json.loads(json.dumps(summary))
     assert sorted(summary["num_frames"]) == [64, 76, 103] and len(summary["npz"]) == 9
-    assert os.path.basename(summary["output_dir"]).endswith("_demo")
+    assert os.path.basename(summary["output_dir"]).endswith("_voice2pose_sdt_bp-DEMO-demo")
 
     jcfg = get_cfg_defaults()
     jcfg.merge_from_file(os.path.join(CONFIG_DIR, "voice2pose_sdt_bp.yaml"))
@@ -94,7 +94,7 @@ def test_demo_cli_matches_jax_demo(tmp_path, bp_ckpt, capsys):
 def test_demo_cli_needs_a_checkpoint_and_refuses_what_is_not_ported(tmp_path, bp_ckpt):
     with pytest.raises(SystemExit):
         port_main.main(["--device", "cpu", "--demo_input", str(tmp_path)])
-    for opts, item in ((["TEST.SAVE_VIDEO", "True"], 13),
+    for opts, item in ((["SYS.DISTRIBUTED", "True"], 14),
                        (["TEST.SAVE_VIDEO", "False", "DEMO.SEQUENCE_PARALLEL", "True"], 14)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A, item {item}"):
             port_main.main(["--device", "cpu", "--demo_input", str(tmp_path), "--checkpoint",

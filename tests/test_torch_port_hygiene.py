@@ -151,12 +151,14 @@ def test_demo_entry_point_needs_cuda_unless_cpu_is_asked_for(tmp_path):
 
 def test_every_refusal_names_its_roadmap_item():
     """Each ``raise NotImplementedError`` in the port says which queue-A item
-    of ROADMAP.md will port what it refuses. Since s2g (item 11) is ported,
-    what is left is the trainer's table, whose refusals (videos) name item 13;
-    a refusal of item 14 or 15 would name its item literally."""
+    of ROADMAP.md will port what it refuses. Since the videos (item 13) are
+    ported, what is left is item 14's: the sequence-parallel demo and the five
+    parallel keys away from their defaults; the video options no longer
+    refuse, in training, in an evaluation or in the demo."""
     import re
 
-    from speechdrivestemplates_tpu_torch.config import sdt_bp
+    from speechdrivestemplates_tpu_torch.config import (PARALLEL_KEYS, apply_overrides,
+                                                        load_config, sdt_bp)
     from speechdrivestemplates_tpu_torch.pipelines.trainer import check_trainer_options
 
     items, raises = set(), 0
@@ -170,23 +172,24 @@ def test_every_refusal_names_its_roadmap_item():
                 assert "ROADMAP.md" in src and found, (f.name, src)
                 items.add(found.group(1))
                 raises += 1
-    assert raises >= 1 and items <= {"{item}", "13", "14", "15"}, (raises, items)
-    for key in ("TRAIN.SAVE_VIDEO", "TEST.SAVE_VIDEO"):
-        cfg = sdt_bp()
-        cfg.TRAIN.SAVE_VIDEO = cfg.TEST.SAVE_VIDEO = False
-        setattr(cfg.TRAIN if key.startswith("TRAIN") else cfg.TEST, "SAVE_VIDEO", True)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 13"):
-            check_trainer_options(cfg, evaluates=True)
-    # the demo: its videos (item 13), and the sequence-parallel demo (item 14)
+    assert raises >= 2 and items <= {"14", "15"}, (raises, items)
     cfg = sdt_bp()
-    with pytest.raises(NotImplementedError, match="TEST.SAVE_VIDEO.*queue A, item 13"):
-        check_trainer_options(cfg, evaluates=False, demo=True)
-    cfg.TEST.SAVE_VIDEO, cfg.DEMO.SEQUENCE_PARALLEL = False, True
+    assert cfg.TRAIN.SAVE_VIDEO and cfg.TEST.SAVE_VIDEO  # JAX's defaults
+    for evaluates, demo in ((True, False), (False, False), (False, True)):
+        check_trainer_options(cfg, evaluates=evaluates, demo=demo)
+    cfg.DEMO.SEQUENCE_PARALLEL = True
     with pytest.raises(NotImplementedError,
                        match="DEMO.SEQUENCE_PARALLEL.*ROADMAP.md queue A, item 14"):
         check_trainer_options(cfg, evaluates=False, demo=True)
-    cfg.TRAIN.SAVE_VIDEO = False
     check_trainer_options(cfg, evaluates=False)  # read by the demo only
+    away = {"SYS.DISTRIBUTED": "True", "SYS.WORLD_SIZE": "2", "SYS.MASTER_ADDR": "10.0.0.2",
+            "SYS.MASTER_PORT": "29500", "SYS.MESH.DATA": "2"}
+    assert sorted(away) == sorted(PARALLEL_KEYS)
+    for key, value in away.items():
+        with pytest.raises(NotImplementedError, match=f"{key}.*ROADMAP.md queue A, item 14"):
+            load_config(None, [key, value])
+        with pytest.raises(NotImplementedError, match=f"{key}.*ROADMAP.md queue A, item 14"):
+            check_trainer_options(apply_overrides(sdt_bp(), [key, value]), evaluates=True)
 
 
 def test_cpu_serving_launches_no_kernel(rng):

@@ -244,7 +244,7 @@ def test_preemption_checkpoint_and_auto_resume(speaker_root, tmp_path):
     text = "".join(lines) + rest
     assert proc.returncode == 143, (proc.returncode, text[-3000:])
     assert "Preemption checkpoint saved" in text
-    ckpts = glob.glob(os.path.join(out, "*_pre", "checkpoints", "*.pth"))
+    ckpts = glob.glob(os.path.join(out, "*_pose2pose-TRAIN-pre", "checkpoints", "*.pth"))
     assert len(ckpts) == 1 and os.path.exists(C.resume_path(ckpts[0])), ckpts
     epoch, step = C.checkpoint_key(ckpts[0])
     assert epoch >= 0 and step >= 2 and step % 2 == 0  # after a whole chunk

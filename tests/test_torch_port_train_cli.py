@@ -30,9 +30,11 @@ def test_cpu_training_writes_a_checkpoint_that_serving_serves(tmp_path, capsys):
     assert line["steps"] == 2 and line["epochs"] == 1
     assert all(np.isfinite(v) for v in line["losses"].values())
     ckpt = line["checkpoint"]
-    assert ckpt == glob.glob(os.path.join(out_dir, "*_cli", "checkpoints", "*.pth"))[0]
+    assert ckpt == glob.glob(os.path.join(out_dir, "*_voice2pose_sdt_bp-TRAIN-cli", "checkpoints",
+                                          "*.pth"))[0]
     assert os.path.basename(ckpt) == "checkpoint_epoch-1_step-2.pth"
-    log = glob.glob(os.path.join(out_dir, "*_cli", "cli.log"))[0]
+    log = glob.glob(os.path.join(out_dir, "*_voice2pose_sdt_bp-TRAIN-cli",
+                                 "voice2pose_sdt_bp-TRAIN-cli.log"))[0]
     with open(log) as f:
         assert f.read().count("[TRAIN] epoch: 1/1  step:") == 2
 
