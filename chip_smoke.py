@@ -147,19 +147,40 @@ Phases, each of which must pass or the script exits non-zero:
               (e) timed, not gated: a 64-frame pair video drawn and saved as mp4 sync and
               async, (c)'s TensorBoard GIFs (from its log), the eval ms per batch of 32
               with videos off and on
+ 20. parallel ranks over torch.distributed (`parallel_phase`), cuDNN deterministic:
+              (a) `main` on SDT-BP fp32, 2 epochs with validation on phase 10's speaker,
+              in one process and in a NCCL process group of one (SYS.DISTRIBUTED True):
+              mel 8, conv1 4, stem 4 launches each; the checkpoints (per-tensor rel L2)
+              and validation metrics (rel) within 1e-6, bit equality reported;
+              (b) two ranks sharing the card over gloo (`parallel.dist.spawn`, backend
+              'gloo'), global B = 32 (16 a rank): 2 SDT-BP steps in fp32 and in float64
+              (a seeded bank: the KL from the first step) and 2 s2g steps in float64,
+              equal on both ranks bit for bit, held to one process's steps on the same
+              global batches (float64: losses, BN statistics, weights, gradients, 1e-8;
+              fp32: the first step's losses and BN statistics, 1e-5, the rest reported),
+              mel once a step a rank; the evaluation of phase 11's checkpoint
+              (fp32) on the 35 dev clips (16 + 2 a rank, JAX's pad row), equal on both
+              ranks and held to one process's evaluation of the same global batches
+              (L2 and lip-sync 1e-5, FGD 1e-4); ms a step per rank;
+              (c) the sequence-parallel demo (DEMO.SEQUENCE_PARALLEL) of phase 11's
+              checkpoint and phase 16's s2g checkpoint, fp32, on phase 17's 24 s clip, at
+              one rank (a NCCL group of one) and two (gloo): within 1e-4 of the dense
+              forward of the clip padded alike (JAX's gate), the ranks equal bit for
+              bit, mel once a rank a clip; ms a clip
 Then one JSON line with every kernel's error, times, bound and launches (the mel
 kernel's count over the serving requests, the train phase's steps, the eval
 batches, phase 15's SDT-BP loops, whose CUDA graphs count a launch where it
 was captured, not where it was replayed, and phase 16's requests, steps and
 loops, phase 17's demo routes, phase 18's main path (one B = 128 artifact
 call, one s2g artifact call, the 11 windows streamed off the window
-artifact; not its reference, warm-up or timed calls) and phase 19's demo,
-test and SDT-BP training; conv1's and the stem's over the serving requests,
-the eval batches, the demo routes, phase 18 and phase 19), the card's name
-and power limit, a JSON line with the train step's time, one with phases
-12-14's numbers, one with phase 15's, one with phase 16's, one with phase
-17's, one with phase 18's and one with phase 19's, and last {"ok": true,
-"device": {...}}.
+artifact; not its reference, warm-up or timed calls), phase 19's demo,
+test and SDT-BP training and phase 20's NCCL run, ranks and demos, every
+rank's counted in its own process; conv1's and the stem's over the serving
+requests, the eval batches, the demo routes, phase 18, phase 19 and phase
+20's evaluations), the card's name and power limit, a JSON line with the
+train step's time, one with phases 12-14's numbers, one with phase 15's, one
+with phase 16's, one with phase 17's, one with phase 18's, one with phase
+19's and one with phase 20's, and last {"ok": true, "device": {...}}.
 
 Times are CUDA-event means over repeated calls after a warm-up; inputs rotate over
 three copies so that each call reads from device memory rather than the 50 MB L2.
@@ -181,6 +202,22 @@ from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
+# phase 20's gates: (a) a NCCL group of one against one process, per-tensor rel L2 of the
+# checkpoint and rel of each validation metric; (b) two ranks against one process on the same
+# global batches. In float64 (SDT-BP and s2g), where round-off cannot hide a wrong
+# collective: each step's losses (rel), the BN statistics and the parameters after each step
+# (rel L2), each gradient's largest error over its largest value. In fp32 (SDT-BP), what the
+# pre-step weights alone compute: the first step's losses (rel) and the BN statistics it
+# moves (rel L2); its gradients and weights are reported: cuDNN's fp32 weight gradients at
+# 16 and 32 rows part by ~1e-3 of a tensor's largest (its algorithms differ by batch size),
+# a train-mode BN's are small remainders of cancelling terms, and Adam's first update (~lr *
+# sign(g)) carries either into the weights. The evaluation (fp32): L2 and lip-sync (rel) at
+# fp32 round-off, FGD looser (its matrix square root amplifies round-off)
+A_REL = 1e-6
+B_REL = {"fp32": 1e-5, "float64": 1e-8}
+B_EVAL_REL = 1e-5
+B_FGD_REL = 1e-4
+B_RUNS = (("sdt_bp", "fp32"), ("sdt_bp", "float64"), ("s2g", "float64"))
 # published dense peaks of one H100 SXM (NVIDIA data sheet): bytes/s and FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
@@ -199,6 +236,407 @@ def bound_ms(nbytes: float, flops: float, kind: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[kind] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# ---- 20. parallel: ranks over torch.distributed, the sequence-parallel demo ---------------
+
+def _rel_l2(a, b) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _max_rel(a, b) -> float:
+    """The largest absolute difference over the reference's largest value
+    (the gate of the JAX package's tests/test_multiprocess.py)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _to_double(state) -> None:
+    """A Voice2Pose state's modules and their compute dtype in float64 (the
+    parameters stay the objects the optimizers hold; the mel kernel still
+    computes in fp32)."""
+    import torch
+
+    for module in (state.generator, state.discriminator, state.pose_encoder):
+        if module is not None:
+            module.double()
+            for sub in module.modules():
+                if isinstance(getattr(sub, "dtype", None), torch.dtype):
+                    sub.dtype = torch.float64
+    if isinstance(state.clips_code, torch.nn.Parameter):
+        state.clips_code.data = state.clips_code.data.double()
+
+
+def _parallel_named_grads(state) -> dict:
+    import torch
+
+    named = {}
+    for prefix, module in (("netG.", state.generator), ("netD_pose.", state.discriminator)):
+        if module is not None:
+            named.update({prefix + n: p for n, p in module.named_parameters()})
+    if isinstance(state.clips_code, torch.nn.Parameter):
+        named["clips_code"] = state.clips_code
+    return {k: p.grad.detach().clone() for k, p in named.items() if p.grad is not None}
+
+
+def _parallel_steps(spec, device, global_batches=None) -> dict:
+    """Phase 20 (b)'s steps of one preset at full width (fp32, or float64
+    with ``spec["double"]``): this rank's
+    shard of the first two global batches of epoch 1 under a process group,
+    or, with ``global_batches`` (the ranks' rows in rank order), the
+    one-process steps on the same global batches. The losses of each step,
+    the gradients, statistics and weights after the first, the weights and
+    statistics after the second, the launches and a step's ms."""
+    import torch
+
+    from speechdrivestemplates_tpu_torch import config as C
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.datasets.gesture_dataset import GestureDataset, collate
+    from speechdrivestemplates_tpu_torch.pipelines import trainer
+    from speechdrivestemplates_tpu_torch.pipelines.voice2pose import (Voice2PoseTrainState,
+                                                                      train_step)
+
+    cfg = C.apply_overrides(getattr(C, spec["preset"])(precision="fp32"), spec["opts"])
+    if global_batches is None:
+        loader = trainer.train_loader(cfg)
+        loader.batch_sampler.set_epoch(1)
+        batches = list(loader)[:2]
+        num_train = len(loader.dataset)
+    else:
+        ds = GestureDataset(cfg.DATASET.ROOT_DIR, cfg.DATASET.SPEAKER, cfg)
+        batches = [collate([ds[i] for i in idx]) for idx in global_batches]
+        num_train = len(ds)
+    state = Voice2PoseTrainState(cfg, num_train, device)
+    if state.clips_code is not None:  # a seeded bank: the KL is active from the first step
+        with torch.no_grad():
+            state.clips_code.copy_(torch.randn(state.clips_code.shape,
+                                               generator=torch.Generator().manual_seed(5)))
+    if spec.get("double"):
+        _to_double(state)
+    out = {"index": [b["clip_index"].tolist() for b in batches], "losses": []}
+    kernels.reset_launch_counts()
+    for t, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, _ = train_step(state, b)
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3  # the second step's: the first tunes cuDNN
+        out["losses"].append({k: float(v) for k, v in losses.items()})
+        if t == 0:
+            out["grads"] = _parallel_named_grads(state)
+            out["state1"] = {k: v.detach().clone() for k, v in state.state_dict().items()}
+    out["launches"] = dict(kernels.executions())
+    out["state2"] = {k: v.detach().clone() for k, v in state.state_dict().items()}
+    del state
+    return out
+
+
+def _parallel_eval(spec, device, global_batches=None) -> dict:
+    """Phase 20 (b)'s evaluation of phase 11's checkpoint in fp32 on the 35
+    dev clips: this rank's shard at TEST.BATCH_SIZE 32 // ranks, or the
+    one-process evaluation of the same global batches."""
+    import torch
+
+    from speechdrivestemplates_tpu_torch import config as C
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.datasets.gesture_dataset import GestureDataset, collate
+    from speechdrivestemplates_tpu_torch.pipelines import trainer
+    from speechdrivestemplates_tpu_torch.pipelines.voice2pose import Voice2PoseTrainState
+
+    cfg = C.apply_overrides(C.sdt_bp(precision="fp32"), spec["opts"])
+    if global_batches is None:
+        loader = trainer.eval_loader(cfg)
+    else:
+        ds = GestureDataset(cfg.DATASET.ROOT_DIR, cfg.DATASET.SPEAKER, cfg, split="val")
+        loader = torch.utils.data.DataLoader(ds, batch_sampler=global_batches, collate_fn=collate)
+    state = Voice2PoseTrainState(cfg, None, device)
+    state.load_pth(spec["ckpt"])
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = trainer.evaluate(state, loader)
+    torch.cuda.synchronize()
+    return {"metrics": metrics, "index": [b["clip_index"].tolist() for b in loader],
+            "launches": dict(kernels.executions()),
+            "ms_per_batch": (time.perf_counter() - t0) * 1e3 / len(loader)}
+
+
+def _parallel_demo(spec, device, dense: bool = False) -> dict:
+    """Phase 20 (c): the sequence-parallel demo of each checkpoint (SDT-BP
+    and s2g, fp32) on the 24 s clip, its launches and ms; with ``dense``, the
+    dense eval forward of the same clip padded as the ranks pad it
+    (``spec["ranks"]``), trimmed: the reference."""
+    import numpy as np
+    import torch
+
+    from speechdrivestemplates_tpu_torch import config as C
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.datasets.gesture_dataset import GestureDataset, collate
+    from speechdrivestemplates_tpu_torch.ops.mel import mel_spectrogram
+    from speechdrivestemplates_tpu_torch.ops.pose import get_final_results
+    from speechdrivestemplates_tpu_torch.pipelines.voice2pose import (Voice2PoseTrainState,
+                                                                      demo_code, demo_step,
+                                                                      eval_mode)
+
+    out = {}
+    for preset, ckpt in (("sdt_bp", spec["ckpt"]), ("s2g", spec["s2g_ckpt"])):
+        cfg = C.apply_overrides(getattr(C, preset)(precision="fp32"), [
+            "DEMO.SEQUENCE_PARALLEL", "True", "DEMO.CODE_INDEX", "0", "TEST.SAVE_VIDEO", "False"])
+        state = Voice2PoseTrainState(cfg, None, device)
+        state.load_pth(ckpt)
+        batch = collate([GestureDataset("unused", "oliver", cfg, split="demo",
+                                        demo_input=spec["clip"])[0]])
+        frames = int(batch["num_frames"][0])
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not dense:
+            pred = demo_step(state, batch)["poses_pred_batch"]
+        else:
+            n = spec["ranks"]
+            audio = batch["audio"][0].numpy()
+            t_mel = -(-(len(audio) // 160 + 2) // (8 * n)) * (8 * n)
+            pad = np.zeros(((t_mel - 1) * 160,), np.float32)
+            pad[:len(audio)] = audio
+            code = demo_code(state)
+            with torch.no_grad(), eval_mode(state.generator):
+                p = state.generator(mel_spectrogram(torch.from_numpy(pad[None]).to(device)),
+                                    -(-frames // (32 * n)) * (32 * n),
+                                    None if code is None else code[None])[:, :frames]
+            stat = {k: v.to(device) for k, v in batch["speaker_stat"].items()}
+            pred = get_final_results(p, stat["mean"], stat["std"], stat["scale_factor"],
+                                     cfg.DATASET.HIERARCHICAL_POSE, cfg.DATASET.NUM_LANDMARKS)
+        torch.cuda.synchronize()
+        out[preset] = {"poses": pred.detach().cpu(), "frames": frames,
+                       "ms": (time.perf_counter() - t0) * 1e3,
+                       "launches": dict(kernels.executions())}
+        del state
+    return out
+
+
+def _parallel_rank(rank, device, spec) -> dict:
+    """One of phase 20's two ranks (gloo, sharing the card): (b)'s steps of
+    SDT-BP and s2g and its evaluation, (c)'s sequence-parallel demo."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the parent's fp32 arithmetic
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    out = {"steps": {f"{p}_{dt}": _parallel_steps(dict(spec, preset=p, double=dt == "float64"),
+                                                  device) for p, dt in B_RUNS},
+           "eval": _parallel_eval(spec, device), "demo": _parallel_demo(spec, device)}
+    if rank:  # rank 1's weights and gradients travel as a digest
+        for s in out["steps"].values():
+            s["digest"] = _tensor_digest({**s.pop("state1"), **s.pop("state2"),
+                                          **{"g." + k: v for k, v in s.pop("grads").items()}})
+    else:
+        for s in out["steps"].values():
+            s["digest"] = _tensor_digest({**s["state1"], **s["state2"],
+                                          **{"g." + k: v for k, v in s["grads"].items()}})
+    return out
+
+
+def _tensor_digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(tensors.items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def parallel_phase(ctx) -> dict:
+    """Phase 20: (a) ``main`` in one process and in a NCCL group of one, (b)
+    two ranks over gloo sharing the card against one process, (c) the
+    sequence-parallel demo at one rank (a NCCL group) and two.
+    ``ctx`` holds what earlier phases made: phase 10's speaker, phase 11's
+    SDT-BP checkpoint, phase 16's s2g checkpoint, phase 17's 24 s clip,
+    phase 13's metrics. Adds its launches to ``ctx.report``; returns its JSON
+    line."""
+    import torch
+
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch import main as port_main
+
+    root, ckpt, em, card, work, dev, report = (ctx.root, ctx.ckpt, ctx.em, ctx.card, ctx.work,
+                                               ctx.dev, ctx.report)
+    from speechdrivestemplates_tpu_torch.parallel import dist as pdist
+    from speechdrivestemplates_tpu_torch.utils.weights import read_pth
+
+    t20 = time.perf_counter()
+    p20 = collections.Counter()
+    pdir = os.path.join(work, "parallel")
+    shutil.rmtree(pdir, ignore_errors=True)
+    # cuDNN's deterministic algorithms throughout the phase (and in its ranks), so that
+    # two runs part by the collectives' arithmetic alone
+    torch.backends.cudnn.deterministic = True
+    # (a) main on SDT-BP, fp32, 2 epochs with validation on phase 10's speaker: one
+    # process, then a process group of one over NCCL (SYS.DISTRIBUTED), whose steps and
+    # evaluations take the collectives
+    aopts = ["DATASET.ROOT_DIR", root, "SYS.OUTPUT_DIR", pdir, "TRAIN.NUM_EPOCHS", "2",
+             "TRAIN.PRECISION", "fp32", "TRAIN.SAVE_VIDEO", "False", "TEST.SAVE_VIDEO", "False"]
+    a_runs, a_launch, a_s = {}, {}, {}
+    for name, extra in (("one", []), ("nccl1", ["SYS.DISTRIBUTED", "True", "SYS.WORLD_SIZE", "1",
+                                                "SYS.MASTER_PORT", str(pdist.free_port())])):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        a_runs[name] = port_main.main(["--device", "cuda", "--tag", name, *aopts, *extra])
+        torch.cuda.synchronize()
+        a_s[name] = time.perf_counter() - t0
+        a_launch[name] = dict(kernels.executions())
+    check(not pdist.distributed(), "main left a process group behind")
+    # 64 clips: 2 steps an epoch, 2 validations of the 35 dev clips (batches 32 and 3)
+    want = {"mel": 4 + 4, "conv1": 4, "stem": 4}
+    for name in a_runs:
+        check({k: a_launch[name].get(k, 0) for k in want} == want and a_runs[name]["steps"] == 4,
+              f"(a) {name}: {a_runs[name]['steps']} steps launched {a_launch[name]}, "
+              f"expected {want}")
+    p20.update(a_launch["nccl1"])
+    ck_one, ck_nccl = (read_pth(a_runs[n]["checkpoint"]) for n in ("one", "nccl1"))
+    check(ck_one.keys() == ck_nccl.keys(), "(a) the checkpoints' keys differ")
+    a_ck_rel = max(_rel_l2(ck_nccl[k], ck_one[k]) for k in ck_one
+                   if ck_one[k].is_floating_point() and ck_one[k].norm() > 0)
+    a_ck_equal = all(torch.equal(ck_nccl[k], ck_one[k]) for k in ck_one)
+    vm_one, vm_nccl = a_runs["one"]["val_metrics"], a_runs["nccl1"]["val_metrics"]
+    a_val_rel = {k: abs(vm_nccl[k] - v) / abs(v) for k, v in vm_one.items()}
+    check(a_ck_rel <= A_REL and max(a_val_rel.values()) <= A_REL,
+          f"(a) NCCL at one rank vs one process: checkpoint rel L2 {a_ck_rel}, validation "
+          f"{a_val_rel} (gate {A_REL})")
+    print(f"[parallel-a] main SDT-BP fp32 2 epochs: one process {a_s['one']:.1f} s, a NCCL group "
+          f"of one {a_s['nccl1']:.1f} s; launches {a_launch['nccl1']} (= one process's); "
+          f"checkpoint largest per-tensor rel L2 {a_ck_rel:.3e} (gate {A_REL}), bit for bit "
+          f"{a_ck_equal}; validation metrics rel {max(a_val_rel.values()):.3e}, bit for bit "
+          f"{vm_one == vm_nccl}; {card}", flush=True)
+
+    # (b) and (c) on two ranks sharing the card over gloo (NCCL takes a card a rank),
+    # spawned through the Python entry; (b)'s one-process reference and (c)'s dense
+    # reference and NCCL group of one run here after them
+    bopts = ["DATASET.ROOT_DIR", root, "TRAIN.VALIDATE", "False", "TRAIN.SAVE_VIDEO", "False",
+             "TEST.SAVE_VIDEO", "False", "SYS.NUM_WORKERS", "0"]
+    spec = {"opts": bopts, "ckpt": ckpt, "s2g_ckpt": ctx.s2g_ckpt, "clip": ctx.clip, "ranks": 2}
+    t0 = time.perf_counter()
+    ranks = pdist.spawn(_parallel_rank, 2, (spec,), device="cuda", backend="gloo",
+                        timeout_s=600)
+    spawn_s = time.perf_counter() - t0
+    r0, r1 = ranks
+    for r in ranks:
+        p20.update(r["eval"]["launches"])
+        for part in ("steps", "demo"):
+            for v in r[part].values():
+                p20.update(v["launches"])
+    b_line = {}
+    for preset, dtype in B_RUNS:
+        run = f"{preset}_{dtype}"
+        s0, s1 = r0["steps"][run], r1["steps"][run]
+        check(s0["losses"] == s1["losses"] and s0["digest"] == s1["digest"],
+              f"(b) {run}: the ranks' losses or weights differ")
+        check(all(v.get("mel", 0) == 2 and not v.get("conv1") and not v.get("stem")
+                  for v in (s0["launches"], s1["launches"])),
+              f"(b) {run}: 2 steps a rank launched {s0['launches']}, {s1['launches']}")
+        one = _parallel_steps(dict(spec, preset=preset, double=dtype == "float64"), dev,
+                              [a + b for a, b in zip(s0["index"], s1["index"])])
+        loss_rel = [max(abs(s0["losses"][t][k] - v) / max(abs(v), 1e-30)
+                        for k, v in one["losses"][t].items()) for t in range(2)]
+        stats = [k for k in one["state1"] if k.endswith(("running_mean", "running_var"))]
+        stat_rel = [max(_rel_l2(s0[w][k], one[w][k]) for k in stats)
+                    for w in ("state1", "state2")]
+        params = list(one["grads"])
+        param_rel = [_rel_l2(torch.cat([s0[w][k].flatten() for k in params]),
+                             torch.cat([one[w][k].flatten() for k in params]))
+                     for w in ("state1", "state2")]
+        grad_rel = {k: _max_rel(s0["grads"][k], one["grads"][k]) for k in params}
+        gate = B_REL[dtype]
+        gated = ([loss_rel[0], stat_rel[0]] if dtype == "fp32" else
+                 [*loss_rel, *stat_rel, *param_rel, *grad_rel.values()])
+        check(max(gated) <= gate,
+              f"(b) {run} two ranks vs one process: losses rel {loss_rel}, BN statistics "
+              f"rel L2 {stat_rel}, parameters rel L2 {param_rel}, gradients "
+              f"{sorted(grad_rel.items(), key=lambda x: -x[1])[:3]} (gate {gate} on "
+              f"{'the first step' if dtype == 'fp32' else 'all'})")
+        b_line[run] = {"loss_rel_steps": loss_rel, "bn_stats_rel_l2_steps": stat_rel,
+                       "params_rel_l2_steps": param_rel,
+                       "grad_max_rel": max(grad_rel.values()),
+                       "grad_max_rel_bank_bn": max(
+                           [v for k, v in grad_rel.items() if ".norm." in k or k == "clips_code"]
+                           or [0.0]),
+                       "ms_a_step_per_rank": [s0["ms"], s1["ms"]],
+                       "ms_a_step_one_process": one["ms"],
+                       "launches_per_rank": [s0["launches"], s1["launches"]],
+                       "losses": s0["losses"]}
+        del one
+    e0, e1 = r0["eval"], r1["eval"]
+    check(e0["metrics"] == e1["metrics"], f"(b) eval: the ranks' metrics differ: {e0['metrics']} "
+                                          f"{e1['metrics']}")
+    check([len(b) for b in e0["index"]] == [16, 2] and
+          all(v == {"mel": 2, "conv1": 2, "stem": 2}
+              for v in ({k: e.get(k, 0) for k in ("mel", "conv1", "stem")}
+                        for e in (e0["launches"], e1["launches"]))),
+          f"(b) eval: batches {[len(b) for b in e0['index']]}, launches {e0['launches']}")
+    e_one = _parallel_eval(spec, dev, [a + b for a, b in zip(e0["index"], e1["index"])])
+    e_rel = {k: abs(e0["metrics"][k] - v) / abs(v) for k, v in e_one["metrics"].items()}
+    check(all(e_rel[k] <= B_EVAL_REL for k in ("L2_dist", "lip_sync_error_n", "G_reg_loss"))
+          and max(e_rel.values()) <= B_FGD_REL,
+          f"(b) eval, two ranks vs one process on the same global batches: {e_rel}")
+    b_line["eval"] = {"metrics": e0["metrics"], "one_process_metrics": e_one["metrics"],
+                      "rel": e_rel, "phase13_metrics_bf16": em,
+                      "ms_per_batch_per_rank": [e0["ms_per_batch"], e1["ms_per_batch"]]}
+    runs = [f"{p}_{dt}" for p, dt in B_RUNS]
+    print(f"[parallel-b] two ranks over gloo on one card, global B 32: SDT-BP (fp32, float64) "
+          f"and s2g (float64), 2 steps each, equal on both ranks bit for bit; against one "
+          f"process on the same global batches (losses and BN statistics after steps 1, 2; "
+          f"weights; the largest gradient error): "
+          f"{ {r: [b_line[r][k] for k in ('loss_rel_steps', 'bn_stats_rel_l2_steps', 'params_rel_l2_steps', 'grad_max_rel')] for r in runs} } "
+          f"(gates {B_REL}; fp32 on step 1's losses and statistics); ms a step per rank "
+          f"{ {r: b_line[r]['ms_a_step_per_rank'] for r in runs} } vs one process "
+          f"{ {r: b_line[r]['ms_a_step_one_process'] for r in runs} }; ragged eval "
+          f"of 35 dev clips (16 + 2 a rank, JAX's pad row): equal on both ranks, vs one process "
+          f"rel {max(e_rel.values()):.3e} (gates {B_EVAL_REL}, FGD {B_FGD_REL}); L2_dist {e0['metrics']['L2_dist']:.4f} (phase 13, bf16, "
+          f"its own code draws: {em['L2_dist']:.4f}); spawn {spawn_s:.1f} s; {card}", flush=True)
+
+    # (c) the sequence-parallel demo on the 24 s clip: the two ranks' (above), and a NCCL
+    # group of one here; each against the dense forward of the clip padded alike
+    c_line = {}
+    pdist.init_process_group(0, 1, dev, f"tcp://localhost:{pdist.free_port()}", "nccl")
+    try:
+        c_one = _parallel_demo(dict(spec, ranks=1), dev)
+    finally:
+        pdist.destroy_process_group()
+    for v in c_one.values():
+        p20.update(v["launches"])
+    for n, got in ((1, {p: [c_one[p]] for p in c_one}),
+                   (2, {p: [r0["demo"][p], r1["demo"][p]] for p in r0["demo"]})):
+        ref = _parallel_demo(dict(spec, ranks=n), dev, dense=True)
+        for preset, outs in got.items():
+            check(all(torch.equal(o["poses"], outs[0]["poses"]) for o in outs),
+                  f"(c) {preset} at {n} ranks: the ranks' poses differ")
+            rel = _max_rel(outs[0]["poses"], ref[preset]["poses"])
+            check(outs[0]["poses"].shape == (1, 360, 2, 121) and rel < 1e-4
+                  and all(o["launches"] == {"mel": 1} for o in outs),
+                  f"(c) {preset} at {n} ranks: {tuple(outs[0]['poses'].shape)}, rel {rel} "
+                  f"(gate 1e-4), launches {[o['launches'] for o in outs]}")
+            c_line[f"{preset}_ranks{n}"] = {
+                "rel_vs_dense": rel, "ms": [o["ms"] for o in outs],
+                "dense_ms": ref[preset]["ms"], "launches": [o["launches"] for o in outs]}
+    print(f"[parallel-c] sequence-parallel demo, 24 s clip (360 frames), fp32: "
+          f"{ {k: (round(v['rel_vs_dense'], 9), [round(m, 2) for m in v['ms']]) for k, v in c_line.items()} } "
+          f"(rel vs the dense forward of the clip padded alike, gate 1e-4; ms a clip per rank); "
+          f"B1 once a rank a clip; {card}", flush=True)
+    torch.backends.cudnn.deterministic = False
+    for name, v in p20.items():
+        report[name]["launches"] += v
+    parallel_line = {"parallel": {"card": card, "a_nccl_world1": {
+        "checkpoint_rel_l2": a_ck_rel, "checkpoint_bit_equal": a_ck_equal,
+        "val_metrics_rel": a_val_rel, "val_metrics_bit_equal": vm_one == vm_nccl,
+        "seconds": a_s, "launches": a_launch["nccl1"]},
+        "b_gloo_2ranks": b_line, "c_seq_demo": c_line, "launches": dict(p20),
+        "spawn_seconds": spawn_s, "phase_seconds": time.perf_counter() - t20}}
+    print(f"[parallel] phase 20 launched {dict(p20)} and took "
+          f"{parallel_line['parallel']['phase_seconds']:.1f} s", flush=True)
+
+    return parallel_line
 
 
 def main() -> None:
@@ -2043,6 +2481,12 @@ def main() -> None:
     print(f"[video] {facts}; ms: {times}; seconds: {seconds}; phase 19 launched {dict(p19)} "
           f"and took {video_line['video']['phase_seconds']:.1f} s", flush=True)
 
+
+    # ---- 20. parallel: ranks over torch.distributed, the sequence-parallel demo ----------
+    parallel_line = parallel_phase(SimpleNamespace(
+        root=root, ckpt=ckpt, s2g_ckpt=c_s2g_resumed["checkpoint"], clip=clips[24.0], em=em,
+        card=card, work=work, dev=dev, report=report))
+
     # ---- summary -----------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2056,6 +2500,7 @@ def main() -> None:
     print(json.dumps(demo_line))
     print(json.dumps(export_line))
     print(json.dumps(video_line))
+    print(json.dumps(parallel_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

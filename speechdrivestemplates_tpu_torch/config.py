@@ -12,9 +12,10 @@ Voice2Pose file that leaves TRAIN.PRECISION unset trains at the flagship's
 bf16, and DATASET.SPEAKER is 'oliver' where the file leaves it unset (JAX's
 dataset refuses a None speaker, so no run JAX accepts reads otherwise).
 
-Keys the port reads and ignores or refuses (``check_config``): the five
-parallel keys (SYS.DISTRIBUTED, WORLD_SIZE, MASTER_ADDR, MASTER_PORT,
-MESH.DATA) raise NotImplementedError away from their defaults; the XLA-only
+The five parallel keys (SYS.DISTRIBUTED, WORLD_SIZE, MASTER_ADDR,
+MASTER_PORT, MESH.DATA) start ranks over ``torch.distributed``
+(``parallel/dist.py``, ``main.py``; ``check_config`` says how they map). Keys
+the port reads and ignores or refuses (``check_config``): the XLA-only
 keys (SYS.MEL_IMPL, FUSED_STEM, CONV_MM_GRAD, DEBUG_NANS, PLATFORM,
 COMPILE_CACHE_DIR), CLIP_CODE.TRAIN and STRICT_LOADING change nothing the
 port computes and are named by ``ignored_keys`` where set; DATASET.NAME must
@@ -151,7 +152,7 @@ class DemoConfig:
     WINDOWED: bool = False  # a clip longer than WINDOW_FRAMES runs as crossfaded windows
     WINDOW_FRAMES: int = 64
     HALO_FRAMES: int = 16  # overlap cropped and crossfaded on each side of a window
-    SEQUENCE_PARALLEL: bool = False  # not ported: ROADMAP.md queue A, item 14
+    SEQUENCE_PARALLEL: bool = False  # the exact demo, time axis split over the ranks
     LENGTH_BUCKET_S: float = 2.0  # read for the JAX YAMLs and ignored: clips run at their length
 
 
@@ -165,7 +166,7 @@ class ProfileConfig:
 
 @dataclass
 class MeshConfig:
-    DATA: int = -1  # not ported: ROADMAP.md queue A, item 14
+    DATA: int = -1  # -1: every rank; > 0 must be the rank count (check_config)
 
 
 @dataclass
@@ -177,8 +178,8 @@ class SysConfig:
     ASYNC_VIDEO_SAVING: bool = False  # videos drawn here, saved by a worker thread
     LOG_INTERVAL: int = 100  # steps between log lines
     NUM_WORKERS: int = 8  # loader worker processes (0: load in the training process)
-    DISTRIBUTED: bool = False  # the parallel keys: ROADMAP.md queue A, item 14
-    WORLD_SIZE: int = 1
+    DISTRIBUTED: bool = False  # a process group even at one rank; torchrun's environment
+    WORLD_SIZE: int = 1  # ranks (processes), one device each
     MASTER_ADDR: str = "localhost"
     MASTER_PORT: int = 21379
     MESH: MeshConfig = field(default_factory=MeshConfig)
@@ -256,8 +257,6 @@ PRESETS = {"voice2pose_sdt_bp": sdt_bp, "voice2pose_sdt_vae": sdt_vae,
            "voice2pose_s2g": s2g, "pose2pose": pose2pose}
 DEFAULT_SPEAKER = "oliver"
 VIDEO_FORMATS = ("tensorboard", "mp4", "img")
-PARALLEL_KEYS = ("SYS.DISTRIBUTED", "SYS.WORLD_SIZE", "SYS.MASTER_ADDR", "SYS.MASTER_PORT",
-                 "SYS.MESH.DATA")
 XLA_ONLY_KEYS = ("SYS.MEL_IMPL", "SYS.FUSED_STEM", "SYS.CONV_MM_GRAD", "SYS.DEBUG_NANS",
                  "SYS.PLATFORM", "SYS.COMPILE_CACHE_DIR")
 # what JAX does with these keys changes nothing the port computes (see ignored_keys)
@@ -525,15 +524,25 @@ def load_config(path: Optional[str] = None, opts=()) -> Config:
 
 
 def check_config(cfg: Config) -> None:
-    """Raise for a key the port does not run: NotImplementedError for a
-    parallel key away from its default, ValueError for another dataset or an
-    unknown video format."""
-    defaults = Config()
-    for key in PARALLEL_KEYS:
-        if get_key(cfg, key) != get_key(defaults, key):
-            raise NotImplementedError(
-                f"{key} {get_key(cfg, key)!r}: data parallelism is not ported yet: ROADMAP.md "
-                f"queue A, item 14; the port runs one process on one device")
+    """Raise ValueError for a value the port does not run: another dataset,
+    an unknown video format, or parallel keys that do not map onto ranks.
+
+    The parallel keys map onto ``torch.distributed`` ranks (``main.py``,
+    ``parallel/dist.py``): SYS.WORLD_SIZE is the number of ranks, one process
+    and one device each (more than 1 on one host: ``main`` spawns them).
+    SYS.MESH.DATA, when > 0, must equal that rank count: JAX's mesh is
+    devices in one process, the port's is processes. SYS.DISTRIBUTED means
+    the ranks may span hosts: they meet at SYS.MASTER_ADDR:SYS.MASTER_PORT, or
+    through the RANK / WORLD_SIZE / LOCAL_RANK environment that ``torchrun``
+    sets, and a process group runs even at one rank. The defaults run one
+    process without a group, as before the ranks were ported."""
+    if cfg.SYS.WORLD_SIZE < 1:
+        raise ValueError(f"SYS.WORLD_SIZE {cfg.SYS.WORLD_SIZE}: the number of ranks, >= 1")
+    if cfg.SYS.MESH.DATA > 0 and cfg.SYS.MESH.DATA != cfg.SYS.WORLD_SIZE:
+        raise ValueError(
+            f"SYS.MESH.DATA {cfg.SYS.MESH.DATA} with SYS.WORLD_SIZE {cfg.SYS.WORLD_SIZE}: JAX's "
+            "mesh is the devices of one process, the port's is its ranks (one process and one "
+            "device each), so SYS.MESH.DATA must be -1 or the rank count, SYS.WORLD_SIZE")
     if cfg.DATASET.NAME != "GestureDataset":
         raise ValueError(f"DATASET.NAME {cfg.DATASET.NAME!r}: the port has 'GestureDataset' "
                          "only, as JAX's dataset registry does")

@@ -24,7 +24,8 @@ statistics.
 
 ``EpochBatches`` is the JAX loader's train schedule, a ``RandomState(seed +
 epoch)`` shuffle of the row indices in full batches only, so a port run and a
-JAX run see the same batches (``pipelines.trainer.train_loader`` feeds it to
+JAX run see the same batches; with ranks, each takes its shard of them as the
+JAX loader's ``num_shards``/``shard_index`` do (``shard_indices``) (``pipelines.trainer.train_loader`` feeds it to
 ``torch.utils.data.DataLoader``, or, with DATASET.CACHING, to ``CachedLoader``).
 
 With DATASET.CACHING (the JAX ``GestureDataset``'s option of that name) an
@@ -195,27 +196,49 @@ def collate(samples: List[Dict[str, object]]) -> Dict[str, object]:
     return to_torch(stack(samples))
 
 
+def shard_indices(num_items: int, num_shards: int = 1, shard_index: int = 0,
+                  seed: Optional[int] = None) -> np.ndarray:
+    """One rank's row indices, as the JAX ``DataLoader._indices`` makes them:
+    ``arange(num_items)``, shuffled by ``RandomState(seed)`` unless ``seed``
+    is None, padded by repeating its head up to a multiple of ``num_shards``
+    (every shard then holds as many rows, and so as many batches), then every
+    ``num_shards``-th row from ``shard_index``."""
+    idx = np.arange(num_items)
+    if seed is not None:
+        np.random.RandomState(seed).shuffle(idx)
+    if num_shards > 1:
+        pad = -(-num_items // num_shards) * num_shards - num_items
+        if pad:
+            idx = np.concatenate([idx, idx[:pad]])
+        idx = idx[shard_index::num_shards]
+    return idx
+
+
 class EpochBatches:
     """The JAX loader's train schedule, as a ``batch_sampler``: the row indices
-    shuffled by ``RandomState(seed + epoch)``, full batches only."""
+    shuffled by ``RandomState(seed + epoch)``, full batches only; with
+    ``num_shards`` > 1, shard ``shard_index``'s rows of them
+    (``shard_indices``), ``batch_size`` being the per-shard batch."""
 
-    def __init__(self, num_items: int, batch_size: int, seed: int = 0):
+    def __init__(self, num_items: int, batch_size: int, seed: int = 0, num_shards: int = 1,
+                 shard_index: int = 0):
         self.num_items = num_items
         self.batch_size = batch_size
         self.seed = seed
+        self.num_shards, self.shard_index = num_shards, shard_index
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
     def index_batches(self) -> List[np.ndarray]:
-        idx = np.arange(self.num_items)
-        np.random.RandomState(self.seed + self.epoch).shuffle(idx)
+        idx = shard_indices(self.num_items, self.num_shards, self.shard_index,
+                            self.seed + self.epoch)
         return [idx[i: i + self.batch_size]
                 for i in range(0, len(idx) - self.batch_size + 1, self.batch_size)]
 
     def __len__(self) -> int:
-        return self.num_items // self.batch_size
+        return -(-self.num_items // self.num_shards) // self.batch_size
 
     def __iter__(self):
         return (b.tolist() for b in self.index_batches())

@@ -33,6 +33,17 @@ a run from a checkpoint the port wrote (a ``.pth`` with its resume file, its
 run directory or ``checkpoints/``), in that run's directory; ``--pretrain_from``
 (TRAIN.PRETRAIN_FROM) starts a new run from a ``.pth``'s weights with fresh
 optimizers.
+Ranks: with SYS.WORLD_SIZE N > 1 the run (train, test or demo) spawns N
+ranks on this host (``parallel.dist.spawn``), each on ``cuda:<rank>`` (or the
+CPU with ``--device cpu``), in a process group at SYS.MASTER_ADDR:
+SYS.MASTER_PORT over NCCL on the card and gloo on the CPU (``main(...,
+backend='gloo')`` asks for gloo on the card); the kernels are built once
+before. Under ``torchrun`` (its RANK / WORLD_SIZE / LOCAL_RANK environment)
+this process is one rank, on ``cuda:<LOCAL_RANK>``, and the ranks may span
+hosts. SYS.DISTRIBUTED True runs a process group at one rank too. Rank 0
+writes the run's files and prints the line below; every rank computes the
+global batch's losses and metrics (``pipelines/trainer.py``). The defaults
+run one process without a group. The export runs in one process.
 Runs on the card unless ``--device cpu`` is given, and raises without one.
 Prints one JSON line at the end: a training run's steps, last losses, last
 checkpoint (which the serving command line loads, given the same
@@ -49,13 +60,64 @@ import json
 import logging
 import os
 
-from .config import ignored_keys, load_config
+from . import kernels
+from .config import check_config, ignored_keys, load_config
+from .parallel import dist as pdist
 from .pipelines.trainer import demo, test, train
 from .utils.device import resolve_device
 from .utils.export import export_serving_fn
 
+def run(cfg, args, cfg_name: str, device) -> dict:
+    """The demo, the test or the training run that ``args`` asks for, in
+    this process (one rank of several, or the only process)."""
+    if args.demo_input:
+        return demo(cfg, args.checkpoint, args.demo_input, f"{cfg_name}-DEMO-{args.tag}", device)
+    if args.test_only:
+        return test(cfg, args.checkpoint, f"{cfg_name}-TEST-{args.tag}", device)
+    return train(cfg, f"{cfg_name}-TRAIN-{args.tag}", device, args.resume_from)
 
-def main(argv=None) -> dict:
+
+def _rank(rank: int, device, cfg, args, cfg_name: str) -> dict:
+    """One spawned rank's run (``parallel.dist.spawn`` calls it)."""
+    logging.basicConfig(level=logging.INFO, format=f"%(asctime)s [rank {rank}] "
+                                                   "[%(levelname)-0.5s] %(message)s")
+    return run(cfg, args, cfg_name, device)
+
+
+def run_ranks(cfg, args, cfg_name: str, device, backend=None) -> dict:
+    """``run`` on the ranks the configuration asks for (``main``'s docstring);
+    rank 0's summary."""
+    env = pdist.torchrun_env()
+    if env is not None:
+        rank, world, local = env
+        if cfg.SYS.WORLD_SIZE not in (1, world):
+            raise ValueError(f"SYS.WORLD_SIZE {cfg.SYS.WORLD_SIZE}, but torchrun started "
+                             f"{world} ranks")
+        cfg.SYS.WORLD_SIZE = world
+        check_config(cfg)
+        pdist.init_process_group(rank, world, pdist.rank_device(device, local), "env://",
+                                 backend)
+        try:
+            return run(cfg, args, cfg_name, pdist.rank_device(device, local))
+        finally:
+            pdist.destroy_process_group()
+    world = cfg.SYS.WORLD_SIZE
+    if world == 1 and not cfg.SYS.DISTRIBUTED:
+        return run(cfg, args, cfg_name, device)
+    init = f"tcp://{cfg.SYS.MASTER_ADDR}:{cfg.SYS.MASTER_PORT}"
+    if world == 1:  # SYS.DISTRIBUTED: a group of one, in this process
+        pdist.init_process_group(0, 1, device, init, backend)
+        try:
+            return run(cfg, args, cfg_name, device)
+        finally:
+            pdist.destroy_process_group()
+    if device.type == "cuda":
+        kernels.build_all()  # once here, not by every rank
+    return pdist.spawn(_rank, world, (cfg, args, cfg_name), device=device, backend=backend,
+                       addr=cfg.SYS.MASTER_ADDR, port=cfg.SYS.MASTER_PORT)[0]
+
+
+def main(argv=None, backend=None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m speechdrivestemplates_tpu_torch.main",
                                  description="train, test, demo or export (the port, PyTorch/CUDA)")
     ap.add_argument("--config_file", default="", metavar="FILE",
@@ -110,13 +172,11 @@ def main(argv=None) -> dict:
             ap.error(f"--export: {cfg.PIPELINE_TYPE} has no audio input to serve")
         summary = export_serving_fn(cfg, args.checkpoint, args.export,
                                     batch_size=args.export_batch, device=device)
-    elif args.demo_input:
-        summary = demo(cfg, args.checkpoint, args.demo_input, f"{cfg_name}-DEMO-{args.tag}",
-                       device)
-    elif args.test_only:
-        summary = test(cfg, args.checkpoint, f"{cfg_name}-TEST-{args.tag}", device)
     else:
-        summary = train(cfg, f"{cfg_name}-TRAIN-{args.tag}", device, args.resume_from)
+        summary = run_ranks(cfg, args, cfg_name, device, backend)
+        env = pdist.torchrun_env()
+        if env is not None and env[0] != 0:  # under torchrun: rank 0 prints
+            return summary
     print(json.dumps(summary))
     return summary
 

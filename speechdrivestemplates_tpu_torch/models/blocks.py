@@ -24,6 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import dist as pdist
+
 NORM_EPS = 1e-5
 LEAKY_SLOPE = 0.2
 BN_MOMENTUM = 0.1  # torch convention: weight of the new batch statistic
@@ -61,7 +63,10 @@ class BatchNorm(nn.Module):
     Train mode normalizes with the biased batch variance and moves the running
     statistics by ``BN_MOMENTUM``, the variance by its unbiased n/(n-1) form
     (n the number of values per channel); eval mode normalizes with the
-    running statistics. Parameter and buffer names are torch's (``weight``,
+    running statistics. Under a process group (``parallel/dist.py``) the
+    train-mode statistics, and the n of the running variance, are the global
+    batch's: every rank's per-channel sums all-reduced, with gradient, in two
+    passes as JAX's ``jnp.var``. Parameter and buffer names are torch's (``weight``,
     ``bias``, ``running_mean``, ``running_var``, ``num_batches_tracked``), so
     reference checkpoints load with ``strict=True``. Returns the normalized
     tensor in the statistics dtype (fp32 for fp32 and bf16 inputs); the
@@ -79,8 +84,11 @@ class BatchNorm(nn.Module):
         xf = x.to(_stats_dtype(x))
         if self.training:
             dims = (0, *range(2, x.ndim))
-            var, mean = torch.var_mean(xf, dim=dims, correction=0)
-            n = xf.numel() // xf.shape[1]
+            if pdist.distributed():  # the global batch's statistics, as JAX's mesh takes them
+                var, mean, n = pdist.batch_var_mean(xf, dims, correction=0)
+            else:
+                var, mean = torch.var_mean(xf, dim=dims, correction=0)
+                n = xf.numel() // xf.shape[1]
             with torch.no_grad():
                 m = 1.0 - BN_MOMENTUM
                 self.running_mean.copy_(m * self.running_mean + BN_MOMENTUM * mean)

@@ -18,6 +18,8 @@ import functools
 import numpy as np
 import torch
 
+from ..parallel import dist as pdist
+
 HAND_ROOT_L = 6
 HAND_ROOT_R = 3
 HEAD_ROOT = 39
@@ -132,15 +134,17 @@ def step_metrics(pred: torch.Tensor, gt: torch.Tensor, multiple: int = 1) -> dic
     mean gap of the lip openings normalized by each clip's widest true one.
     A batch of ``multiple`` > 1 repeats (``multiply_batch``) also gives the
     least and the largest of the repeats' mean distances, ``L2_dist_min`` and
-    ``L2_dist_max``."""
+    ``L2_dist_max``. Under a process group each mean is the global batch's
+    (the mean over ranks of equal-sized shards' means)."""
     l2 = torch.linalg.vector_norm(pred - gt, dim=2)
     lip_pred = torch.linalg.vector_norm(pred[..., LIP_LOWER] - pred[..., LIP_UPPER], dim=-1)
     lip_gt = torch.linalg.vector_norm(gt[..., LIP_LOWER] - gt[..., LIP_UPPER], dim=-1)
     denom = lip_gt.amax(-1, keepdim=True) + 1e-4
     lip_err = (lip_pred / denom - lip_gt / denom).abs()
-    out = {"L2_dist": l2.mean(), "lip_sync_error_n": lip_err.mean()}
+    out = {"L2_dist": pdist.mean_over_ranks(l2.mean()),
+           "lip_sync_error_n": pdist.mean_over_ranks(lip_err.mean())}
     if multiple > 1:
-        per = l2.reshape(multiple, -1).mean(1)
+        per = pdist.mean_over_ranks(l2.reshape(multiple, -1).mean(1))
         out["L2_dist_min"], out["L2_dist_max"] = per.min(), per.max()
     return out
 

@@ -12,7 +12,11 @@ is SDT-VAE's template bank. The step runs poses only: no kernel. The demo
 (``demo_step``) decodes an external code, ``np.load(DEMO.CODE_PATH)["v"][i] *
 10``, as the reference and the JAX package do. Videos are drawn by
 Voice2Pose's ``generate_video*``; the epoch figure ``train/clip_code`` is
-``clip_code_mu``'s 2-D PCA.
+``clip_code_mu``'s 2-D PCA. Under a process group the step is the global
+batch's, as Voice2Pose's is: global losses and BN statistics, gradients
+averaged over ranks, the reparameterization noise drawn for the global batch
+on every rank (each takes its rows), and every rank's rows written into the
+banks on every rank.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from ..models import build_model
 from ..ops.pose import get_final_results, multiply_batch, step_metrics
+from ..parallel import dist as pdist
 from ..utils.device import resolve_device
 from ..utils.weights import check_bank_rows, read_pth
 from .voice2pose import (code_figure, eval_mode, load_train_state, make_adam, make_scheduler,
@@ -110,9 +115,11 @@ class Pose2PoseTrainState:
 def pose2pose_losses(pred: torch.Tensor, gt: torch.Tensor, mu: torch.Tensor,
                      logvar: torch.Tensor, cfg) -> Dict[str, torch.Tensor]:
     """``{"reg_loss", "kl_loss", "loss"}``: L1 x LAMBDA_REG and the mean
-    elementwise KL of N(mu, exp(logvar)) to N(0, 1) x LAMBDA_KL."""
-    reg = (pred - gt).abs().mean() * cfg.POSE2POSE.LAMBDA_REG
-    kl = 0.5 * (-logvar + mu ** 2 + logvar.exp() - 1.0).mean() * cfg.POSE2POSE.LAMBDA_KL
+    elementwise KL of N(mu, exp(logvar)) to N(0, 1) x LAMBDA_KL; under a
+    process group, the global batch's means (``parallel.dist``)."""
+    reg = pdist.mean_over_ranks((pred - gt).abs().mean()) * cfg.POSE2POSE.LAMBDA_REG
+    kl = (pdist.mean_over_ranks(0.5 * (-logvar + mu ** 2 + logvar.exp() - 1.0).mean())
+          * cfg.POSE2POSE.LAMBDA_KL)
     return {"reg_loss": reg, "kl_loss": kl, "loss": reg + kl}
 
 
@@ -127,25 +134,45 @@ def _to(batch, dev):
             for k, v in batch.items()}
 
 
+def _global_noise(state: Pose2PoseTrainState, batch_size: int) -> Optional[torch.Tensor]:
+    """Under a process group, the reparameterization's noise for a rank's
+    shard: the global batch's draw from ``state.rng`` on every rank, this
+    rank's rows of it (``parallel.dist.draw_rows``); None (the autoencoder
+    draws) without one."""
+    if not pdist.distributed():
+        return None
+    shape = (state.cfg.POSE2POSE.AUTOENCODER.CODE_DIM,)
+    return pdist.draw_rows(lambda n: torch.randn((n, *shape), generator=state.rng,
+                                                 device=state.device, dtype=state.ae.encoder.dtype),
+                           batch_size)
+
+
 def train_step(state: Pose2PoseTrainState, batch: Dict[str, object],
                noise: Optional[torch.Tensor] = None
                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """One optimization step; returns ``(losses, results)`` as device tensors.
-    ``noise`` (B, code_dim) replaces the reparameterization's draw."""
+    ``noise`` (B, code_dim) replaces the reparameterization's draw. Under a
+    process group the batch is the rank's shard: the losses are the global
+    batch's, the gradients are averaged over ranks, and every rank writes
+    every rank's rows into the banks."""
     cfg = state.cfg
     b = _to({k: batch[k] for k in ("poses", "clip_index", "speaker_stat")}, state.device)
     gt = b["poses"]
+    if noise is None:
+        noise = _global_noise(state, gt.shape[0])
     pred, mu, logvar = state.ae(gt, cfg.DATASET.NUM_FRAMES, noise=noise,
                                 generator=state.rng)
     losses = pose2pose_losses(pred, gt, mu, logvar, cfg)
     state.opt.zero_grad(set_to_none=True)
     losses["loss"].backward()
+    pdist.average_gradients(state.ae.parameters())
     state.opt.step()
 
     with torch.no_grad():
         mu, logvar = mu.detach(), logvar.detach()
-        state.clip_code_mu[b["clip_index"]] = mu.float()
-        state.clip_code_logvar[b["clip_index"]] = logvar.float()
+        index = pdist.gather_rows(b["clip_index"])
+        state.clip_code_mu[index] = pdist.gather_rows(mu.float())
+        state.clip_code_logvar[index] = pdist.gather_rows(logvar.float())
         losses = {k: v.detach() for k, v in losses.items()}
         final = [_final(b, p, cfg) for p in (pred.detach(), gt)]
         losses.update(step_metrics(*final))
@@ -157,18 +184,21 @@ def train_step(state: Pose2PoseTrainState, batch: Dict[str, object],
 @torch.no_grad()
 def eval_step(state: Pose2PoseTrainState, batch: Dict[str, object],
               external_code: Optional[torch.Tensor] = None,
-              noise: Optional[torch.Tensor] = None
+              noise: Optional[torch.Tensor] = None, sharded: bool = False
               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """The autoencoder in eval mode (BN running statistics) on a batch
     repeated TEST.MULTIPLE times; the reparameterization still samples, as in
     the JAX step. With ``external_code`` (B, code_dim) it only decodes that
-    code, and computes no loss."""
+    code, and computes no loss. ``sharded``: the batch is a rank's shard of
+    a global eval batch, whose noise is drawn as ``train_step`` draws it."""
     cfg, multiple = state.cfg, state.cfg.TEST.MULTIPLE
     b = _to({k: batch[k] for k in ("poses", "speaker_stat") if k in batch}, state.device)
     if multiple > 1:
         b = multiply_batch(b, multiple)
     if external_code is not None:
         external_code = external_code.to(state.device)
+    elif noise is None and sharded and "poses" in b:
+        noise = _global_noise(state, b["poses"].shape[0])
     with eval_mode(state.ae):
         pred, mu, logvar = state.ae(b.get("poses"), cfg.DATASET.NUM_FRAMES,
                                     external_code, noise=noise, generator=state.rng)

@@ -1,7 +1,7 @@
 """The training loop, validation and the test run, for both pipelines.
 
-Counterpart of the JAX package's ``Trainer`` (``pipelines/trainer.py``),
-single process; ``PIPELINE_TYPE`` picks Voice2Pose or Pose2Pose. A run writes
+Counterpart of the JAX package's ``Trainer`` (``pipelines/trainer.py``);
+``PIPELINE_TYPE`` picks Voice2Pose or Pose2Pose. A run writes
 into ``<SYS.OUTPUT_DIR>/<datetime>_<tag>/`` (``main.py`` passes JAX's
 ``<cfg_name>-{TRAIN,TEST,DEMO}-<tag>``): the log ``<tag>.log``; a
 TensorBoard event file (``utils/tb_native.py``: ``train/lr_<k>`` and
@@ -38,6 +38,23 @@ or a directory, one clip at a time through the pipeline's ``demo_step``,
 DEMO.MULTIPLE times a clip (the code moved from DEMO.CODE_INDEX towards
 DEMO.CODE_INDEX_B by i / (MULTIPLE - 1)), each result archived with
 TEST.SAVE_NPZ as ``results/epoch0-DEMO-step{t}[-{i}].npz``.
+
+Under a process group (``parallel/dist.py``; ``main.py`` starts the ranks)
+every rank runs the same function on its shard of the data, as the JAX
+trainer's processes do: the train and eval loaders take JAX's shards
+(``datasets.gesture_dataset.shard_indices``) at TRAIN.BATCH_SIZE // world and
+TEST.BATCH_SIZE // world a rank; the steps compute the global batch's losses,
+statistics and gradients; an evaluation weights each batch by its global
+sample count and gathers every rank's FGD features, so every rank ends with
+the same metrics. Rank 0 alone makes the run directory and writes its log
+file, TensorBoard, videos, result archives, figures and checkpoints (every
+rank waits for each checkpoint), and makes TRAIN.AUTO_RESUME's choice, which
+it hands to the others; every rank loads the same checkpoint. The preemption
+flag is agreed over ranks at each step, so every rank stamps the same (epoch,
+step). The device cache and the K-step CUDA graph stay off (each rank keeps
+its loader shard). The demo runs on every rank (the sequence-parallel route,
+DEMO.SEQUENCE_PARALLEL, splits the clip's time axis over them); rank 0 writes
+its archives and videos.
 """
 
 from __future__ import annotations
@@ -55,8 +72,9 @@ import torch
 
 from ..config import check_config
 from ..datasets.gesture_dataset import (CachedLoader, EpochBatches, GestureDataset, collate,
-                                        to_torch)
+                                        shard_indices, to_torch)
 from ..ops.fgd import compute_fgd
+from ..parallel import dist as pdist
 from ..utils.device import resolve_device
 from ..utils.tb_native import NativeTBWriter
 from ..utils.video import VideoWriter
@@ -96,18 +114,12 @@ def pipeline(cfg) -> SimpleNamespace:
 
 
 def check_trainer_options(cfg, evaluates: bool, demo: bool = False) -> None:
-    """Raise for what the port lacks: NotImplementedError for the
-    sequence-parallel demo and the parallel keys (``config.check_config``),
-    not ported yet, ValueError for an unknown pipeline or option value, and
-    ImportError where the run saves videos (TEST.SAVE_VIDEO where it
-    evaluates or is a demo, TRAIN.SAVE_VIDEO where it trains) and cv2 does
-    not import."""
+    """Raise for an option the run cannot take: ValueError for an unknown
+    pipeline or option value (``config.check_config``), and ImportError
+    where the run saves videos (TEST.SAVE_VIDEO where it evaluates or is a
+    demo, TRAIN.SAVE_VIDEO where it trains) and cv2 does not import."""
     pipeline(cfg)
     check_config(cfg)
-    if demo and cfg.DEMO.SEQUENCE_PARALLEL:
-        raise NotImplementedError("DEMO.SEQUENCE_PARALLEL True (the sequence-parallel demo) is "
-                                  "not ported yet: ROADMAP.md queue A, item 14; pass "
-                                  "DEMO.SEQUENCE_PARALLEL False")
     videos = ((cfg.TRAIN.SAVE_VIDEO and not demo)
               or (cfg.TEST.SAVE_VIDEO and (evaluates or demo)))
     if videos and cfg.SYS.VIDEO_FORMAT:
@@ -123,18 +135,30 @@ def check_trainer_options(cfg, evaluates: bool, demo: bool = False) -> None:
         raise ValueError(f"TRAIN.STEPS_PER_DISPATCH {cfg.TRAIN.STEPS_PER_DISPATCH}: >= 1")
 
 
+def rank_batch(batch_size: int, what: str) -> int:
+    """A rank's share of the global ``batch_size`` (JAX: ``batch_size //
+    process_count``); the whole of it without a process group."""
+    world = pdist.world_size()
+    if batch_size < world:
+        raise ValueError(f"{what} {batch_size} is less than the {world} ranks: each needs a "
+                         "sample a batch")
+    return batch_size // world
+
+
 def train_loader(cfg, device=None):
     """The train split in the JAX loader's batches (``loader.batch_sampler
-    .set_epoch`` picks the epoch's shuffle): with DATASET.CACHING a
-    ``CachedLoader`` over the split's SoA arrays, else SYS.NUM_WORKERS worker
-    processes that live as long as the loader. Batches for the card
-    (``device``) come in page-locked memory."""
+    .set_epoch`` picks the epoch's shuffle), this rank's shard of them under
+    a process group: with DATASET.CACHING a ``CachedLoader`` over the split's
+    SoA arrays, else SYS.NUM_WORKERS worker processes that live as long as
+    the loader. Batches for the card (``device``) come in page-locked
+    memory."""
     dataset = GestureDataset(cfg.DATASET.ROOT_DIR, cfg.DATASET.SPEAKER, cfg)
-    if len(dataset) < cfg.TRAIN.BATCH_SIZE:
+    bs = rank_batch(cfg.TRAIN.BATCH_SIZE, "TRAIN.BATCH_SIZE")
+    if -(-len(dataset) // pdist.world_size()) < bs:
         raise ValueError(f"{len(dataset)} train clips make no full batch of "
                          f"TRAIN.BATCH_SIZE {cfg.TRAIN.BATCH_SIZE}")
     pin = device is not None and torch.device(device).type == "cuda"
-    batches = EpochBatches(len(dataset), cfg.TRAIN.BATCH_SIZE, cfg.SYS.SEED)
+    batches = EpochBatches(len(dataset), bs, cfg.SYS.SEED, pdist.world_size(), pdist.rank())
     if cfg.DATASET.CACHING:
         return CachedLoader(dataset, batches, pin)
     workers = cfg.SYS.NUM_WORKERS
@@ -145,13 +169,19 @@ def train_loader(cfg, device=None):
 
 def eval_loader(cfg) -> torch.utils.data.DataLoader:
     """The val split in order, TEST.BATCH_SIZE a batch, the ragged last batch
-    kept (the JAX eval loader: no shuffle, no drop)."""
+    kept (the JAX eval loader: no shuffle, no drop); under a process group
+    this rank's shard of it (``shard_indices``: the padded duplicates are
+    JAX's) at TEST.BATCH_SIZE // world a batch."""
     dataset = GestureDataset(cfg.DATASET.ROOT_DIR, cfg.DATASET.SPEAKER, cfg, split="val")
     if not len(dataset):
         raise ValueError(f"no val ('dev') clips for speaker {cfg.DATASET.SPEAKER!r} under "
                          f"{cfg.DATASET.ROOT_DIR}")
+    bs = rank_batch(cfg.TEST.BATCH_SIZE, "TEST.BATCH_SIZE")
+    sampler = None
+    if pdist.distributed():
+        sampler = shard_indices(len(dataset), pdist.world_size(), pdist.rank()).tolist()
     return torch.utils.data.DataLoader(
-        dataset, batch_size=cfg.TEST.BATCH_SIZE, shuffle=False, drop_last=False,
+        dataset, batch_size=bs, sampler=sampler, shuffle=False, drop_last=False,
         collate_fn=collate, num_workers=cfg.SYS.NUM_WORKERS)
 
 
@@ -163,8 +193,7 @@ def _to_device(batch, device):
 
 def device_cache_reason(cfg, loader, device_keys) -> str:
     """'' when the train set can be staged on the device for ``loader``, else
-    the reason it cannot (the JAX ``_device_cache_eligible``; the port is one
-    process, so JAX's multi-process reason has no counterpart)."""
+    the reason it cannot (the JAX ``_device_cache_eligible``)."""
     if cfg.DATASET.DEVICE_CACHE == "off":
         return "DATASET.DEVICE_CACHE off"
     if getattr(loader.dataset, "split", None) != "train":
@@ -175,6 +204,8 @@ def device_cache_reason(cfg, loader, device_keys) -> str:
         return "needs DATASET.CACHING (SoA arrays)"
     if cfg.TRAIN.SAVE_VIDEO or cfg.TRAIN.SAVE_NPZ:
         return "per-step artifact saving needs host batches"
+    if pdist.distributed():
+        return "multi-process runs keep per-host loader shards"
     return ""
 
 
@@ -281,9 +312,8 @@ def epoch_figures(p, state) -> Dict[str, object]:
 class Preemption:
     """With TRAIN.CHECKPOINT_ON_PREEMPT, a SIGTERM handler that sets ``flag``;
     the old handler comes back on exit. A non-main thread cannot install one
-    (ValueError) and runs without it, as in JAX. JAX agrees on the flag across
-    hosts with an allgather; the port is one process, so its own flag is the
-    decision."""
+    (ValueError) and runs without it, as in JAX. Ranks agree on the flag
+    (``TrainLoop._check_preempt``), as JAX's hosts do with an allgather."""
 
     def __init__(self, enabled: bool):
         self.enabled, self.flag, self.old, self.installed = enabled, False, None, False
@@ -318,7 +348,7 @@ class Profiler:
         self.out = self.cfg.OUT_DIR or os.path.join(base_path or ".", "profile")
 
     def at(self, global_step: int) -> None:
-        if not self.cfg.ENABLED:
+        if not self.cfg.ENABLED or not pdist.is_master():  # rank 0's trace, as in JAX
             return
         start, end = self.cfg.START_STEP, self.cfg.START_STEP + self.cfg.NUM_STEPS
         if self.prof is None and start <= global_step < end:
@@ -456,11 +486,14 @@ class TrainLoop:
                 self.writer.add_scalar(f"train/{k}", v, global_step)
 
     def _check_preempt(self, epoch: int, global_step: int) -> None:
-        if self.preempt is None or not self.preempt.flag:
+        # under a process group every rank asks at every step (a collective):
+        # the ranks stop at the same step, whichever of them got the signal
+        if self.preempt is None or not self.preempt.enabled or not pdist.agree(self.preempt.flag):
             return
         # stamped epoch - 1: a resume redoes the interrupted epoch from its start
-        save_checkpoint(self.state, checkpoint_path(self.base_path, epoch - 1, global_step),
-                        epoch - 1, global_step)
+        path = None if self.base_path is None else checkpoint_path(self.base_path, epoch - 1,
+                                                                   global_step)
+        save_rank0(self.state, path, epoch - 1, global_step)
         log.warning("Preemption checkpoint saved (epoch %d, step %d); exiting 143",
                     epoch - 1, global_step)
         raise SystemExit(143)
@@ -475,7 +508,12 @@ def evaluate(state, loader: torch.utils.data.DataLoader, epoch: int = 0,
     FGD_mu_logvar when the pipeline gives pose-encoder latents; each goes to
     ``writer`` as ``val/<k>`` or ``test/<k>`` at step ``epoch``. With
     TEST.SAVE_VIDEO and ``video``, a pair video at each result archive's
-    step."""
+    step. ``loader`` is a ``DataLoader`` of the split, whose size divides the
+    weighted sums, or any iterable of batches (the rows it holds divide).
+    Under a process group it is this rank's shard: each batch's global
+    losses weigh its global sample count (the rank's times the ranks, JAX's
+    weight, the shard padding's duplicates included), and the FGD features
+    are every rank's."""
     cfg = state.cfg
     tag = "TEST" if epoch == 0 else "VAL"
     eval_fn = pipeline(cfg).eval_step
@@ -483,16 +521,16 @@ def evaluate(state, loader: torch.utils.data.DataLoader, epoch: int = 0,
     every = max(1, n_batches // cfg.TEST.NUM_RESULT_SAMPLE)
     sums: Dict[str, torch.Tensor] = {}
     latents: Dict[str, list] = {k: [] for k in FGD_KEYS}
-    num, tic = 0, time.perf_counter()
+    rows, tic = 0, time.perf_counter()
     for t, batch in enumerate(loader, 1):
-        true_bs = batch["poses"].shape[0]
-        losses, results = eval_fn(state, batch)
+        true_bs = batch["poses"].shape[0] * pdist.world_size()
+        rows += true_bs
+        losses, results = eval_fn(state, batch, sharded=True)
         for k, v in losses.items():
             sums[k] = sums[k] + v.double() * true_bs if k in sums else v.double() * true_bs
         for k in FGD_KEYS:
             if k in results:
-                latents[k].append(results[k].float().cpu().numpy())
-        num += true_bs
+                latents[k].append(results[k].float())
         if t % cfg.SYS.LOG_INTERVAL == 0:
             log.info(f"[{tag}] epoch: {epoch}/{cfg.TRAIN.NUM_EPOCHS}  step: {t}/{n_batches}  "
                      + _line(losses))
@@ -502,9 +540,12 @@ def evaluate(state, loader: torch.utils.data.DataLoader, epoch: int = 0,
             if cfg.TEST.SAVE_VIDEO and video is not None:
                 save_pair_video(video, cfg, tag, t, epoch, None, batch, results, writer,
                                 base_path)
+    # JAX divides by the split's size (the shard padding's rows weigh in); an
+    # iterable of batches without a dataset by the rows it held
+    num = len(loader.dataset) if isinstance(loader, torch.utils.data.DataLoader) else rows
     metrics = {k: float(v) / num for k, v in sums.items()}
     if all(latents[k] for k in FGD_KEYS):
-        lat = {k: np.concatenate(v) for k, v in latents.items()}
+        lat = {k: pdist.gather_rows(torch.cat(v)).cpu().numpy() for k, v in latents.items()}
         metrics["FGD_mu"] = compute_fgd(lat["mu_pred"], lat["mu_gt"])
         metrics["FGD_mu_logvar"] = compute_fgd(
             np.concatenate([lat["mu_pred"], lat["logvar_pred"]], 1),
@@ -523,29 +564,39 @@ class _RunDir:
     """``<SYS.OUTPUT_DIR>/<datetime>_<tag>/`` (or ``path``, an existing run's
     directory, which a resume writes on into) and its log file, attached to
     the port's logger while the run lasts, its TensorBoard writer and its
-    video writer, whose queue is drained when the run ends."""
+    video writer, whose queue is drained when the run ends. Under a process
+    group rank 0 alone makes and writes them, and hands the path to the
+    other ranks, whose ``writer``, ``video`` and ``out`` (where artifacts
+    go) are None."""
 
     def __init__(self, cfg, tag: str, subdirs=(), path: Optional[str] = None):
         self.cfg = cfg
-        if path is None:
-            stamp = str(datetime.now()).replace(".", "-").replace(":", "-").replace(" ", "_")
-            path = os.path.join(cfg.SYS.OUTPUT_DIR, f"{stamp}_{tag}")
-            os.makedirs(path)
-        self.path = path
-        for d in subdirs:
-            os.makedirs(os.path.join(self.path, d), exist_ok=True)
-        self.handler = logging.FileHandler(os.path.join(self.path, f"{tag}.log"))
-        self.handler.setFormatter(logging.Formatter("%(asctime)s [%(levelname)-0.5s] %(message)s"))
-        self.writer = self.video = None
+        self.master = pdist.is_master()
+        self.handler = self.writer = self.video = None
+        if self.master:
+            if path is None:
+                stamp = str(datetime.now()).replace(".", "-").replace(":", "-").replace(" ", "_")
+                path = os.path.join(cfg.SYS.OUTPUT_DIR, f"{stamp}_{tag}")
+                os.makedirs(path)
+            for d in subdirs:
+                os.makedirs(os.path.join(path, d), exist_ok=True)
+            self.handler = logging.FileHandler(os.path.join(path, f"{tag}.log"))
+            self.handler.setFormatter(
+                logging.Formatter("%(asctime)s [%(levelname)-0.5s] %(message)s"))
+        self.path = pdist.broadcast_object(path)
+        self.out = self.path if self.master else None
 
     def __enter__(self):
-        PORT_LOG.addHandler(self.handler)
-        PORT_LOG.setLevel(logging.INFO)  # the run's log file takes every line
-        self.writer = NativeTBWriter(self.path)
-        self.video = VideoWriter(self.cfg)
+        if self.master:
+            PORT_LOG.addHandler(self.handler)
+            PORT_LOG.setLevel(logging.INFO)  # the run's log file takes every line
+            self.writer = NativeTBWriter(self.path)
+            self.video = VideoWriter(self.cfg)
         return self
 
     def __exit__(self, *exc):
+        if not self.master:
+            return
         try:
             self.video.close()  # the queued videos, written before the event file closes
         finally:
@@ -554,10 +605,25 @@ class _RunDir:
             self.handler.close()
 
 
+def save_rank0(state, path: str, epoch: int, global_step: int) -> None:
+    """The checkpoint and its resume file, written by rank 0; every rank
+    waits for them."""
+    if pdist.is_master():
+        save_checkpoint(state, path, epoch, global_step)
+    pdist.barrier()
+
+
 def _auto_resume(cfg, tag: str) -> Optional[str]:
     """TRAIN.AUTO_RESUME: the newest checkpoint of this tag whose ``.pth`` and
     resume file both load; one that does not is skipped with a log line (a
-    save cut off mid-write falls back to the one before)."""
+    save cut off mid-write falls back to the one before). Rank 0 chooses
+    and hands its choice to the other ranks."""
+    if not pdist.is_master():
+        return pdist.broadcast_object(None)
+    return pdist.broadcast_object(_newest_loadable(cfg, tag))
+
+
+def _newest_loadable(cfg, tag: str) -> Optional[str]:
     for cand in find_auto_resume_candidates(cfg.SYS.OUTPUT_DIR, tag):
         try:
             read_pth(cand)
@@ -604,6 +670,8 @@ def train(cfg, tag: str = "train", device="cuda",
     loader = train_loader(cfg, device)
     val = eval_loader(cfg) if cfg.TRAIN.VALIDATE else None
     cache, cache_line = stage_device_cache(cfg, loader, device, p.device_keys)
+    if pdist.distributed():
+        cache_line += f"; rank {pdist.rank()} of {pdist.world_size()}"
     K = cfg.TRAIN.STEPS_PER_DISPATCH
     state = p.state(cfg, len(loader.dataset), device,
                     capturable=device.type == "cuda" and K > 1 and cache is not None)
@@ -632,7 +700,7 @@ def train(cfg, tag: str = "train", device="cuda",
                         cache_line.split(": ", 1)[1])
         log.info("Training begins: %s, %d train clips, %d steps an epoch, device %s",
                  cfg.PIPELINE_TYPE, len(loader.dataset), len(loader), state.device)
-        loop = TrainLoop(state, loader, cache, K, run.path, run.writer, preempt, profiler,
+        loop = TrainLoop(state, loader, cache, K, run.out, run.writer, preempt, profiler,
                          video=run.video)
         epoch_times = []
         try:
@@ -643,10 +711,10 @@ def train(cfg, tag: str = "train", device="cuda",
                 if epoch % cfg.TRAIN.CHECKPOINT_INTERVAL == 0:
                     if val is not None:
                         log.info("Validation begins!")
-                        metrics = evaluate(state, val, epoch, run.path, run.writer, run.video)
+                        metrics = evaluate(state, val, epoch, run.out, run.writer, run.video)
                     # after the validation, whose draws the resume file's generator holds
                     checkpoint = checkpoint_path(run.path, epoch, global_step)
-                    save_checkpoint(state, checkpoint, epoch, global_step)
+                    save_rank0(state, checkpoint, epoch, global_step)
                     log.info("Saved checkpoint to: %s", checkpoint)
                 if state.device.type == "cuda":
                     torch.cuda.synchronize(state.device)  # the epoch's time is the card's too
@@ -656,11 +724,12 @@ def train(cfg, tag: str = "train", device="cuda",
                 epoch_times.append(took / 3600)
                 eta = (cfg.TRAIN.NUM_EPOCHS - epoch) * float(np.mean(epoch_times[-10:]))
                 log.info("[TRAIN] epoch_time: %.2f hours  ETA: %.2f hours", took / 3600, eta)
-                run.writer.add_scalar("train/epoch_time", took / 3600, epoch)
-                run.writer.add_scalar("train/ETA", eta, epoch)
-                for k, fig in epoch_figures(p, state).items():
-                    run.writer.add_figure(f"train/{k}", fig, epoch)
-                run.writer.flush()
+                if run.writer is not None:
+                    run.writer.add_scalar("train/epoch_time", took / 3600, epoch)
+                    run.writer.add_scalar("train/ETA", eta, epoch)
+                    for k, fig in epoch_figures(p, state).items():
+                        run.writer.add_figure(f"train/{k}", fig, epoch)
+                    run.writer.flush()
         finally:
             profiler.close(global_step)
     out = {"epochs": cfg.TRAIN.NUM_EPOCHS, "steps": global_step,
@@ -688,7 +757,7 @@ def test(cfg, checkpoint: str, tag: str = "test", device="cuda") -> Dict[str, ob
     with _RunDir(cfg, tag) as run:
         log.info("Testing begins: %s from %s, %d clips, device %s", cfg.PIPELINE_TYPE,
                  checkpoint, len(loader.dataset), state.device)
-        metrics = evaluate(state, loader, 0, run.path, run.writer, run.video)
+        metrics = evaluate(state, loader, 0, run.out, run.writer, run.video)
     return {"metrics": metrics, "num_samples": len(loader.dataset),
             "checkpoint": checkpoint, "output_dir": run.path}
 
@@ -730,10 +799,10 @@ def demo(cfg, checkpoint: str, demo_input: str, tag: str = "demo",
             frames.append(int(batch["num_frames"][0]))
             for extra_id, coeff in passes:
                 results = p.demo_step(state, batch, coeff)
-                if cfg.TEST.SAVE_NPZ:
-                    paths.append(save_results(run.path, "DEMO", t, 0, results, extra_id))
-                if cfg.TEST.SAVE_VIDEO:
-                    save_demo_video(run.video, cfg, t, batch, results, run.writer, run.path,
+                if cfg.TEST.SAVE_NPZ and run.out is not None:
+                    paths.append(save_results(run.out, "DEMO", t, 0, results, extra_id))
+                if cfg.TEST.SAVE_VIDEO and run.out is not None:
+                    save_demo_video(run.video, cfg, t, batch, results, run.writer, run.out,
                                     extra_id)
         if state.device.type == "cuda":
             torch.cuda.synchronize(state.device)

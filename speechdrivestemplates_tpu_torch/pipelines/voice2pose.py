@@ -39,6 +39,13 @@ One train step, in order (``train_step``):
      on the ground truth (re-normalized by ``p2g_renorm`` on global poses):
      two BN statistics updates, no parameter update;
   7. L2 and lip-sync metrics on pixel-space poses.
+Under a process group (``parallel/dist.py``) the batch is the rank's shard
+of a global batch, and the step computes what JAX's sharded step computes:
+every loss, the KL's code statistics, the metrics and every train-mode BN's
+statistics are the global batch's (all-reduced, with gradient), each rank
+backpropagates that same global loss, and the parameters' gradients are
+averaged over ranks before the optimizers step; the ranks' weights stay
+equal bit for bit. Without one, the step is the one-process step.
 The learning rates follow MultiStepLR at epochs [N-10, N-2], gamma 0.1, when
 TRAIN.LR_SCHEDULER is set (``make_scheduler``; ``end_epoch`` steps it).
 A state built ``capturable`` (the trainer's choice for K train steps in one
@@ -53,7 +60,10 @@ pose encoder in eval mode on the prediction and the ground truth (mu and
 logvar: the FGD features), the metrics.
 
 The demo (``demo_step``, the JAX ``demo_step``) takes one clip of any length
-(a batch of the demo split) to pixel-space poses by one of two routes. With
+(a batch of the demo split) to pixel-space poses by one of three routes. With
+DEMO.SEQUENCE_PARALLEL, ``seq_parallel_demo_forward``: the exact forward of
+the whole clip with its time axis split over the ranks
+(``parallel/seqparallel.py``). With
 DEMO.WINDOWED and a clip longer than DEMO.WINDOW_FRAMES, ``windowed_demo_
 forward``: the clip's windows (``ops/longform.py``) as one batch through the
 eval forward at the window's shape, one code for all of them, the window poses
@@ -76,6 +86,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import logging
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -87,12 +98,14 @@ from ..ops.longform import stitch_windows, window_audio
 from ..ops.mel import _mel_filterbank_np, mel_spectrogram, mel_spectrogram_plain
 from ..ops.pose import (get_final_results, multiply_batch, step_metrics,
                         transform_normalized_parted2global)
+from ..parallel import dist as pdist
 from ..utils.device import resolve_device
 from ..utils.viz import vis_relative_pose_clip, vis_relative_pose_pair_clip
 from ..utils.weights import (check_bank_rows, external_code_bank, pose_encoder_from_ae_pth,
                              read_pth)
 from .checkpoint import atomic_save
 
+log = logging.getLogger(__name__)
 ADAM = dict(betas=(0.9, 0.999), eps=1e-8)
 # the batch keys the steps read, what the trainer stages on the card;
 # speaker_stat_global exists on global poses only (DATASET.HIERARCHICAL_POSE False)
@@ -374,7 +387,7 @@ def load_train_state(state, sd: Dict[str, object]) -> None:
 
 
 def _mse(x: torch.Tensor, target: float) -> torch.Tensor:
-    return ((x - target) ** 2).mean()
+    return pdist.mean_over_ranks(((x - target) ** 2).mean())
 
 
 def generator_losses(pred: torch.Tensor, gt: torch.Tensor, code: Optional[torch.Tensor],
@@ -384,15 +397,23 @@ def generator_losses(pred: torch.Tensor, gt: torch.Tensor, code: Optional[torch.
     "G_loss"})`` for a prediction and its target: the KL for the batch's (B,
     code_dim) codes, or (B, code_dim, T) per-frame codes, whose KL is over the
     (B*T, code_dim) rows (None for a code-less generator: no KL); the LSGAN
-    term for the discriminator's scores of the prediction, ``score_fake``."""
+    term for the discriminator's scores of the prediction, ``score_fake``.
+    Under a process group every term is the global batch's, as JAX's sharded
+    step takes it: the L1 and MSE means are the mean over ranks, the KL's
+    ``mu`` and unbiased ``var`` are over every rank's rows
+    (``parallel.dist``); each rank then holds the same loss, and its
+    gradient flows back through the all-reduces."""
     gcfg = cfg.VOICE2POSE.GENERATOR
-    reg = (pred - gt).abs().mean() * gcfg.LAMBDA_REG
+    reg = pdist.mean_over_ranks((pred - gt).abs().mean()) * gcfg.LAMBDA_REG
     losses = {"G_reg_loss": reg}
     g_loss = reg
     if code is not None:
         if code.ndim == 3:
             code = code.transpose(1, 2).reshape(-1, code.shape[1])
-        mu, var = code.mean(0), code.var(0, correction=1)
+        if pdist.distributed():
+            var, mu, _ = pdist.batch_var_mean(code, (0,), correction=1)
+        else:
+            mu, var = code.mean(0), code.var(0, correction=1)
         safe = torch.where(var > 0, var, torch.ones_like(var))
         kl = 0.5 * (-torch.log(safe) + mu ** 2 + var - 1.0).mean() * gcfg.LAMBDA_CLIP_KL
         kl = torch.where((var != 0).all(), kl, torch.zeros_like(kl))
@@ -412,8 +433,9 @@ def disc_losses(score_real: torch.Tensor, score_fake: torch.Tensor,
     and the mean scores (the JAX ``_disc_losses``)."""
     d_loss = ((_mse(score_real, 1.0) + _mse(score_fake, 0.0))
               * cfg.VOICE2POSE.POSE_DISCRIMINATOR.LAMBDA_GAN)
-    return d_loss, {"D_pose_gan_loss": d_loss, "pose_score_fake": score_fake.mean(),
-                    "pose_score_real": score_real.mean()}
+    return d_loss, {"D_pose_gan_loss": d_loss,
+                    "pose_score_fake": pdist.mean_over_ranks(score_fake.mean()),
+                    "pose_score_real": pdist.mean_over_ranks(score_real.mean())}
 
 
 @functools.lru_cache(maxsize=8)
@@ -503,6 +525,9 @@ def train_step(state: Voice2PoseTrainState, batch: Dict[str, object],
     for o in optimizers:
         o.zero_grad(set_to_none=True)
     total.backward()
+    # every rank backpropagated the same global loss: the mean of the ranks'
+    # gradients is its gradient (parallel/dist.py)
+    pdist.average_gradients([p for o in optimizers for g in o.param_groups for p in g["params"]])
     for o in optimizers:
         o.step()
 
@@ -525,7 +550,8 @@ def train_step(state: Voice2PoseTrainState, batch: Dict[str, object],
 
 
 def condition_code(state: Voice2PoseTrainState, batch: Dict[str, torch.Tensor],
-                   interpolation_coeff: Optional[float] = None) -> Optional[torch.Tensor]:
+                   interpolation_coeff: Optional[float] = None,
+                   sharded: bool = False) -> Optional[torch.Tensor]:
     """The eval template codes of a device batch (the eval modes of the JAX
     ``_condition_code``; a train step takes the bank rows at ``clip_index``);
     None for a code-less generator. The first mode set of:
@@ -534,14 +560,19 @@ def condition_code(state: Voice2PoseTrainState, batch: Dict[str, torch.Tensor],
     global poses), DEMO.CODE_INDEX (that bank row for every sample, moved
     towards DEMO.CODE_INDEX_B, where it is set, by ``interpolation_coeff``);
     else a bank row drawn uniformly for each sample. Draws come from
-    ``state.rng``."""
+    ``state.rng``; for a ``sharded`` batch (a rank's shard of the global
+    batch) they are drawn for the global batch on every rank, and each takes
+    its rows (``parallel.dist.draw_rows``), so the ranks' generators stay in
+    step and the codes are those of a one-process run."""
     if state.clips_code is None:
         return None
     cfg, bank = state.cfg, state.clips_code.detach()
     cc = cfg.VOICE2POSE.GENERATOR.CLIP_CODE
     B = batch["audio"].shape[0]
+    rows = pdist.draw_rows if sharded else (lambda draw, n: draw(n))
     if cc.SAMPLE_FROM_NORMAL:
-        return torch.randn(B, cc.DIMENSION, generator=state.rng, device=state.device)
+        return rows(lambda n: torch.randn(n, cc.DIMENSION, generator=state.rng,
+                                          device=state.device), B)
     if cc.TEST_WITH_GT_CODE:
         if state.pose_encoder is None:
             raise ValueError("CLIP_CODE.TEST_WITH_GT_CODE needs VOICE2POSE.POSE_ENCODER")
@@ -552,7 +583,8 @@ def condition_code(state: Voice2PoseTrainState, batch: Dict[str, torch.Tensor],
             return state.pose_encoder(gt)[0].float()
     if cfg.DEMO.CODE_INDEX is not None:
         return demo_code(state, interpolation_coeff)[None].expand(B, *bank.shape[1:])
-    idx = torch.randint(0, bank.shape[0], (B,), generator=state.rng, device=state.device)
+    idx = rows(lambda n: torch.randint(0, bank.shape[0], (n,), generator=state.rng,
+                                       device=state.device), B)
     return bank[idx]
 
 
@@ -560,7 +592,7 @@ def condition_code(state: Voice2PoseTrainState, batch: Dict[str, torch.Tensor],
 def eval_step(state: Voice2PoseTrainState, batch: Dict[str, object],
               fixed_code: Optional[torch.Tensor] = None, plain: bool = False,
               num_frames: Optional[int] = None,
-              interpolation_coeff: Optional[float] = None
+              interpolation_coeff: Optional[float] = None, sharded: bool = False
               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """One eval step; returns ``(losses, results)`` as device tensors: the
     losses (the GAN ones with D in eval mode) and metrics where the batch has
@@ -570,7 +602,9 @@ def eval_step(state: Voice2PoseTrainState, batch: Dict[str, object],
     ``fixed_code`` replaces ``condition_code``'s, which takes
     ``interpolation_coeff``; ``plain`` takes the plain mel and stem even on
     the card (a reference). ``num_frames`` (default DATASET.NUM_FRAMES) is the
-    output's length."""
+    output's length. ``sharded``: the batch is this rank's shard of a global
+    eval batch (``condition_code``); the losses and metrics are the global
+    batch's under a process group in any case."""
     cfg, dev = state.cfg, state.device
     b = _to_device(batch, dev)
     if cfg.TEST.MULTIPLE > 1 and "poses" in b:
@@ -586,7 +620,7 @@ def eval_step(state: Voice2PoseTrainState, batch: Dict[str, object],
     with eval_mode(state.generator, state.pose_encoder, D):
         mel = (mel_spectrogram_plain if plain else mel_spectrogram)(b["audio"])
         code = (fixed_code.to(dev) if fixed_code is not None
-                else condition_code(state, b, interpolation_coeff))
+                else condition_code(state, b, interpolation_coeff, sharded))
         pred = state.generator(mel, num_frames, code, plain=plain)
         results = {"poses_pred_batch": final(pred)}
         if code is not None:
@@ -652,16 +686,65 @@ def windowed_demo_forward(state: Voice2PoseTrainState, batch: Dict[str, object],
     return out
 
 
+def seq_parallel_demo_forward(state: Voice2PoseTrainState, batch: Dict[str, object],
+                              num_frames: int, interpolation_coeff: Optional[float] = None,
+                              plain: bool = False) -> Dict[str, torch.Tensor]:
+    """The exact long-form demo (the JAX ``_seq_parallel_demo_forward``): one
+    generator forward with the time axis split over the ranks
+    (``parallel/seqparallel.py``) on the clip's audio zero-padded to 8 x
+    ranks mel columns, at ``num_frames`` padded to 32 x ranks frames, the pad
+    frames then trimmed. Every rank computes the whole padded clip's mel
+    (the mel kernel on the card) and ends with every frame. Raises
+    ValueError where the clip is too short for the ranks."""
+    from ..parallel.seqparallel import generator_seq_parallel
+
+    cfg, dev = state.cfg, state.device
+    if state.clips_code is not None and cfg.VOICE2POSE.GENERATOR.CLIP_CODE.FRAME_VARIANT:
+        raise NotImplementedError(
+            "DEMO.SEQUENCE_PARALLEL does not support FRAME_VARIANT clip "
+            "codes (the per-frame code bank is train-length-shaped; "
+            "use DEMO.WINDOWED)")
+    n = pdist.world_size()
+    t_pad = -(-num_frames // (32 * n)) * (32 * n)
+    audio = np.asarray(batch["audio"][0], np.float32)
+    t_mel = -(-(len(audio) // 160 + 2) // (8 * n)) * (8 * n)
+    audio_pad = np.zeros(((t_mel - 1) * 160,), np.float32)
+    audio_pad[: len(audio)] = audio
+    with eval_mode(state.generator):
+        mel = (mel_spectrogram_plain if plain else mel_spectrogram)(
+            torch.from_numpy(audio_pad[None]).to(dev))
+        code = demo_code(state, interpolation_coeff)
+        code = None if code is None else code[None]
+        pred = generator_seq_parallel(state.generator, mel, t_pad, code)[:, :num_frames]
+    stat = _to_device({"speaker_stat": batch["speaker_stat"]}, dev)["speaker_stat"]
+    out = {"poses_pred_batch": get_final_results(
+        pred, stat["mean"], stat["std"], stat["scale_factor"], cfg.DATASET.HIERARCHICAL_POSE,
+        cfg.DATASET.NUM_LANDMARKS)}
+    if code is not None:
+        out["condition_code"] = code
+    return out
+
+
 def demo_step(state: Voice2PoseTrainState, batch: Dict[str, object],
               interpolation_coeff: Optional[float] = None,
               plain: bool = False) -> Dict[str, torch.Tensor]:
     """A demo batch (one clip) -> ``{"poses_pred_batch": (1, T, 2, K)
-    [, "condition_code"]}``: windowed with DEMO.WINDOWED where the clip is
-    longer than a window, else one eval forward of the whole clip at its own
-    length."""
+    [, "condition_code"]}``: with DEMO.SEQUENCE_PARALLEL the exact
+    sequence-parallel forward over the ranks (where the clip is too short
+    for them, JAX's warning and the dense forward); else windowed with
+    DEMO.WINDOWED where the clip is longer than a window, else one eval
+    forward of the whole clip at its own length."""
     num_frames = int(np.asarray(batch["num_frames"]).reshape(-1)[0])
     d = state.cfg.DEMO
-    if d.WINDOWED and num_frames > d.WINDOW_FRAMES:
+    if d.SEQUENCE_PARALLEL:
+        try:
+            return seq_parallel_demo_forward(state, batch, num_frames, interpolation_coeff,
+                                             plain)
+        except ValueError as e:
+            # a clip too short for the ranks' halos: the dense forward takes any clip
+            log.warning("DEMO.SEQUENCE_PARALLEL unavailable for this clip (%s); using the "
+                        "dense forward", e)
+    elif d.WINDOWED and num_frames > d.WINDOW_FRAMES:
         return windowed_demo_forward(state, batch, num_frames, interpolation_coeff, plain)
     return eval_step(state, batch, plain=plain, num_frames=num_frames,
                      interpolation_coeff=interpolation_coeff)[1]

@@ -78,11 +78,12 @@ def test_cli_refuses_what_it_lacks(tmp_path):
         port_main.main(["--device", "cpu", "--checkpoint", "x.pth"])  # without --test_only
     with pytest.raises(SystemExit):
         port_main.main(["--device", "cpu", "--config_file", "configs/other.yaml"])
-    # the parallel keys (item 14) away from their defaults, before anything is written
-    with pytest.raises(NotImplementedError, match="SYS.DISTRIBUTED True.* item 14"):
+    # parallel keys that map onto no ranks (item 14 is ported: the keys themselves are
+    # accepted), refused before anything is written
+    with pytest.raises(SystemExit):
         port_main.main(["--device", "cpu", "--config_file", "configs/voice2pose_s2g.yaml",
-                        "SYS.OUTPUT_DIR", str(tmp_path), "SYS.DISTRIBUTED", "True"])
-    with pytest.raises(NotImplementedError, match="SYS.MESH.DATA 4.* item 14"):
+                        "SYS.OUTPUT_DIR", str(tmp_path), "SYS.WORLD_SIZE", "0"])
+    with pytest.raises(SystemExit):
         port_main.main(["--device", "cpu", "--test_only", "--checkpoint", "x.pth",
                         "SYS.OUTPUT_DIR", str(tmp_path), "SYS.MESH.DATA", "4"])
     assert not os.listdir(tmp_path)

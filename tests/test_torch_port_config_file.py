@@ -130,12 +130,15 @@ def test_subset_reader_raises_outside_the_subset(text, line):
 
 
 def test_keys_the_port_refuses_or_ignores(tmp_path):
-    """A parallel key set in the file raises naming item 14; the XLA-only
-    keys, CLIP_CODE.TRAIN and STRICT_LOADING are accepted and named as
-    ignored; another dataset, an unknown video format, an unknown key and a
-    type JAX refuses raise as JAX's merge does."""
+    """A parallel key set in the file is read (item 14 is ported), and a
+    SYS.MESH.DATA that is not the rank count raises; the XLA-only keys,
+    CLIP_CODE.TRAIN and STRICT_LOADING are accepted and named as ignored;
+    another dataset, an unknown video format, an unknown key and a type JAX
+    refuses raise as JAX's merge does."""
     path = _edited(tmp_path, extra="SYS:\n  DISTRIBUTED: True\n")
-    with pytest.raises(NotImplementedError, match="SYS.DISTRIBUTED True.*queue A, item 14"):
+    assert C.load_config(path).SYS.DISTRIBUTED is True
+    path = _edited(tmp_path, extra="SYS:\n  MESH:\n    DATA: 4\n")
+    with pytest.raises(ValueError, match="SYS.MESH.DATA 4 with SYS.WORLD_SIZE 1"):
         C.load_config(path)
     xla = ["SYS.MEL_IMPL", "dft", "SYS.FUSED_STEM", "True", "SYS.CONV_MM_GRAD", "True",
            "SYS.DEBUG_NANS", "True", "SYS.PLATFORM", "cpu", "SYS.COMPILE_CACHE_DIR", "''",

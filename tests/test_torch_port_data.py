@@ -234,20 +234,22 @@ def test_overrides_parse_like_yacs():
 
 
 @pytest.mark.parametrize("opts,match", [
-    (["SYS.DISTRIBUTED", "True"], "item 14"),
-    (["TRAIN.VALIDATE", "True", "SYS.MESH.DATA", "2"], "item 14"),
+    (["SYS.WORLD_SIZE", "0"], "SYS.WORLD_SIZE 0"),
+    (["TRAIN.VALIDATE", "True", "SYS.MESH.DATA", "2"], "SYS.MESH.DATA 2 with SYS.WORLD_SIZE 1"),
     (["PIPELINE_TYPE", "Pose2Pose", "POSE2POSE.AUTOENCODER.NAME", "Autoencoder",
-      "SYS.WORLD_SIZE", "2"], "item 14"),
+      "SYS.WORLD_SIZE", "2", "SYS.MESH.DATA", "4"], "SYS.MESH.DATA 4 with SYS.WORLD_SIZE 2"),
 ])
 def test_unported_options_raise_naming_the_roadmap(speaker_root, tmp_path, opts, match):
-    """What the port has not ported refuses before anything is written: since
-    the videos (item 13) are ported, the parallel keys (item 14)."""
+    """What the port refuses is refused before anything is written. Since the
+    parallel keys (item 14) are ported, no option names the roadmap any
+    more: what is left are parallel keys that map onto no ranks (a world of
+    no rank, a SYS.MESH.DATA that is not the rank count)."""
     from speechdrivestemplates_tpu_torch.pipelines.trainer import train
 
     base = ["TRAIN.VALIDATE", "False", "TRAIN.SAVE_VIDEO", "False",
             "SYS.OUTPUT_DIR", str(tmp_path)]
     cfg = _port_cfg(speaker_root, *base, *opts)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A, {match}"):
+    with pytest.raises(ValueError, match=match):
         train(cfg, "t", device="cpu")
     assert not os.listdir(tmp_path)  # refused before anything is written
 

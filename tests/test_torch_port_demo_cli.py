@@ -94,9 +94,12 @@ def test_demo_cli_matches_jax_demo(tmp_path, bp_ckpt, capsys):
 def test_demo_cli_needs_a_checkpoint_and_refuses_what_is_not_ported(tmp_path, bp_ckpt):
     with pytest.raises(SystemExit):
         port_main.main(["--device", "cpu", "--demo_input", str(tmp_path)])
-    for opts, item in ((["SYS.DISTRIBUTED", "True"], 14),
-                       (["TEST.SAVE_VIDEO", "False", "DEMO.SEQUENCE_PARALLEL", "True"], 14)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A, item {item}"):
+    # item 14 is ported: the parallel keys and DEMO.SEQUENCE_PARALLEL run; parallel keys that
+    # map onto no ranks are refused before anything is written
+    for opts in (["SYS.WORLD_SIZE", "0"],
+                 ["TEST.SAVE_VIDEO", "False", "DEMO.SEQUENCE_PARALLEL", "True",
+                  "SYS.MESH.DATA", "2"]):
+        with pytest.raises(SystemExit):
             port_main.main(["--device", "cpu", "--demo_input", str(tmp_path), "--checkpoint",
                             bp_ckpt, "SYS.OUTPUT_DIR", str(tmp_path / "out"), *opts])
     assert not (tmp_path / "out").exists()
