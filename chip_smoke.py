@@ -167,6 +167,24 @@ Phases, each of which must pass or the script exits non-zero:
               one rank (a NCCL group of one) and two (gloo): within 1e-4 of the dense
               forward of the clip padded alike (JAX's gate), the ranks equal bit for
               bit, mel once a rank a clip; ms a clip
+ 21. loader   the native item loader (`loader_phase`) on phase 10's 1,600-clip speaker:
+              (a) the C++ core built with this host's `c++` into a fresh directory (the
+              compiler's and zlib's versions, the seconds); (b) gates: every clip's audio
+              and poses through the core equal the numpy route's bit for bit, parted
+              (SDT-BP) and global (s2g's file), and so do 8 clips re-saved DEFLATE'd and 8
+              in data_preprocess/3_1_generate_clips.py's layout (float64, `imgs`); no clip
+              rejected; a 63-frame clip rejected (-5), read by numpy and counted; epoch
+              1's 50 batches from 8 worker processes equal those of a subprocess with
+              SDT_DISABLE_NATIVE=1; materialize()'s arrays equal, 1,600 items through the
+              core; (c) times, not gated, min-max over 3 alternated rounds, numpy against
+              native items: item ms, the loader's batches/s alone (copied to the card) at
+              0 and 8 worker processes, JAX's route (8 threads over the core's items,
+              then collate, page-locking, the copy), one B = 32 batch split into item
+              work, collate, page-locking and the copy, materialize()'s seconds, a
+              worker's move of a batch into shared memory in 1 process and in 8 at
+              once, the loader at 2 workers and unpinned with the main thread's wait
+              share, the host's CPU count; (d) the inspectors' `npz` and `csv` command
+              lines (rc 0, 8 and 128 jpgs)
 Then one JSON line with every kernel's error, times, bound and launches (the mel
 kernel's count over the serving requests, the train phase's steps, the eval
 batches, phase 15's SDT-BP loops, whose CUDA graphs count a launch where it
@@ -180,7 +198,8 @@ requests, the eval batches, the demo routes, phase 18, phase 19 and phase
 20's evaluations), the card's name and power limit, a JSON line with the
 train step's time, one with phases 12-14's numbers, one with phase 15's, one
 with phase 16's, one with phase 17's, one with phase 18's, one with phase
-19's and one with phase 20's, and last {"ok": true, "device": {...}}.
+19's, one with phase 20's and one with phase 21's, and last
+{"ok": true, "device": {...}}.
 
 Times are CUDA-event means over repeated calls after a warm-up; inputs rotate over
 three copies so that each call reads from device memory rather than the 50 MB L2.
@@ -191,6 +210,7 @@ from __future__ import annotations
 import collections
 import glob
 import json
+import multiprocessing
 import os
 import shutil
 import re
@@ -637,6 +657,381 @@ def parallel_phase(ctx) -> dict:
           f"{parallel_line['parallel']['phase_seconds']:.1f} s", flush=True)
 
     return parallel_line
+
+
+# ---- 21. loader: the native item loader on the card's host --------------------------------
+
+def _batch_digest(batch) -> str:
+    """sha256 over a batch's tensors, nested keys flattened."""
+    flat = {}
+    for k, v in batch.items():
+        for kk, vv in (v.items() if isinstance(v, dict) else [("", v)]):
+            flat[f"{k}.{kk}"] = vv
+    return _tensor_digest(flat)
+
+
+def loader_epoch_digests(root: str, workers: int = 8) -> list:
+    """Phase 21 (b): epoch 1 of the SDT-BP train loader over ``root`` with
+    ``workers`` worker processes, a digest a batch. The numpy arm runs it in
+    a subprocess with SDT_DISABLE_NATIVE set."""
+    from speechdrivestemplates_tpu_torch.config import apply_overrides, sdt_bp
+    from speechdrivestemplates_tpu_torch.pipelines.trainer import train_loader
+
+    loader = train_loader(apply_overrides(sdt_bp(), ["DATASET.ROOT_DIR", root,
+                                                     "SYS.NUM_WORKERS", str(workers)]))
+    loader.batch_sampler.set_epoch(1)
+    return [_batch_digest(b) for b in loader]
+
+
+_SHARE_BARRIER = None
+
+
+def _share_init(barrier) -> None:
+    global _SHARE_BARRIER
+    _SHARE_BARRIER = barrier
+
+
+def _share_memory_ms(job) -> float:
+    """Phase 21 (c), in a pool process: ms to move tensors of ``sizes`` bytes
+    (one collated batch) into fresh shared memory, as a loader worker does
+    before it sends a batch, over ``reps`` batches (``clone`` alone timed and
+    subtracted); with ``together``, after the pool's 8 processes meet at a
+    barrier, so that all 8 do it at once."""
+    import torch
+
+    sizes, reps, together = job
+    tensors = [torch.ones(n // 4) for n in sizes]
+    if together:
+        _SHARE_BARRIER.wait()
+    ms = []
+    for share in (True, False):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for t in tensors:
+                t = t.clone()
+                if share:
+                    t.share_memory_()
+        ms.append((time.perf_counter() - t0) / reps * 1e3)
+    return ms[0] - ms[1]
+
+
+def _span(xs) -> list:
+    return [min(xs), max(xs)]
+
+
+def loader_phase(ctx) -> dict:
+    """Phase 21: the native item loader on phase 10's 1,600-clip speaker
+    (``ctx.root``): (a) its build with this host's compiler; (b) gates: every
+    clip's item through the core = the numpy route's, parted and global, in
+    two more layouts, the rejections, one epoch's batches of 8 worker
+    processes = a numpy run's; (c) times, not gated: items, the loader's
+    batches/s by item route and worker count, JAX's thread route, a batch's
+    split, ``materialize()``, and a worker's shared-memory hand-off alone in
+    1 process and in 8 at once (a spawned pool: a script that calls this
+    runs its own work under ``if __name__ == "__main__"``); (d) the
+    inspectors' command lines. Returns its JSON line."""
+    import numpy as np
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+
+    from speechdrivestemplates_tpu_torch.config import apply_overrides, load_config, sdt_bp
+    from speechdrivestemplates_tpu_torch.datasets import gesture_dataset as gd
+    from speechdrivestemplates_tpu_torch.datasets import native_loader as nl
+    from speechdrivestemplates_tpu_torch.datasets.speakers_stat import get_speaker_stat
+    from speechdrivestemplates_tpu_torch.datasets.synthetic import make_synthetic_speaker
+    from speechdrivestemplates_tpu_torch.pipelines.trainer import train_loader
+
+    t21 = time.perf_counter()
+    root, dev = ctx.root, ctx.dev
+    ldir = os.path.join(ctx.work, "loader")
+    shutil.rmtree(ldir, ignore_errors=True)
+    os.makedirs(ldir)
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("SDT_DISABLE_NATIVE", None)
+
+    def numpy_route(on: bool) -> None:
+        if on:
+            os.environ["SDT_DISABLE_NATIVE"] = "1"
+        else:
+            os.environ.pop("SDT_DISABLE_NATIVE", None)
+
+    numpy_route(False)
+
+    # (a) the core built with this host's compiler into a fresh directory
+    cxx = subprocess.run(["c++", "--version"], capture_output=True, text=True, timeout=60)
+    zh = subprocess.run(["c++", "-E", "-dM", "-x", "c++", "-"], input="#include <zlib.h>\n",
+                        capture_output=True, text=True, timeout=60)
+    zlib_version = re.search(r'#define ZLIB_VERSION "([^"]+)"', zh.stdout)
+    check(cxx.returncode == 0 and zlib_version is not None,
+          f"the host's c++ or zlib.h: {cxx.stderr}{zh.stderr[-2000:]}")
+    build_s = nl.ensure_built(os.path.join(ldir, "build"))
+    check(build_s is not None and nl.library(os.path.join(ldir, "build"))
+          .sdt_dataio_abi_version() == 1, "the core did not build into a fresh directory")
+    check(nl.native_available(), "the dataset's core (build/libsdt_dataio.so) is not loaded")
+    build = {"compiler": cxx.stdout.splitlines()[0], "zlib": zlib_version.group(1),
+             "build_s": build_s, "flags": nl.CXX_FLAGS}
+    print(f"[loader] (a) {build}", flush=True)
+
+    # (b) every clip, parted (SDT-BP) and global (s2g's file): the core = numpy
+    nl.REJECTED.clear()
+    parted_cfg = apply_overrides(sdt_bp(), ["DATASET.ROOT_DIR", root, "SYS.NUM_WORKERS", "0"])
+    global_cfg = load_config(os.path.join(ROOT, "configs", "voice2pose_s2g.yaml"),
+                             ["DATASET.ROOT_DIR", root, "DATASET.SPEAKER", "oliver",
+                              "SYS.NUM_WORKERS", "0"])
+    check(parted_cfg.DATASET.HIERARCHICAL_POSE and not global_cfg.DATASET.HIERARCHICAL_POSE,
+          "phase 21's configs: parted SDT-BP and global s2g")
+    ds = gd.GestureDataset(root, "oliver", parted_cfg)
+    T, L = ds.num_frames, ds.audio_length
+
+    def same(path, parted):
+        st = get_speaker_stat("oliver", 121, parted)
+        got = nl.load_clip_native(path, T, parted, st["mean"], st["std"], L)
+        poses, audio = gd.load_clip_numpy(path, T, parted, st["mean"], st["std"], L)
+        return (got is not None and np.array_equal(got[0], poses)
+                and got[2].tobytes() == audio.tobytes())
+
+    paths = [os.path.join(root, "oliver", c["pose_fn"]) for c in ds.clips]
+    check(len(paths) >= 64, f"phase 10's speaker has {len(paths)} train clips")
+    t0 = time.perf_counter()
+    for parted in (True, False):
+        bad = [p for p in paths if not same(p, parted)]
+        check(not bad, f"{len(bad)} clips differ between the core and numpy "
+                       f"({'parted' if parted else 'global'}), e.g. {bad[:3]}")
+    every_s = time.perf_counter() - t0
+    # the same 8 clips re-saved DEFLATE'd, and in 3_1_generate_clips.py's layout
+    layouts = {"compressed": [], "float64_imgs": []}
+    for i, p in enumerate(paths[:8]):
+        with np.load(p) as z:
+            pose, audio = z["pose"], z["audio"]
+        q = os.path.join(ldir, f"deflate_{i}.npz")
+        np.savez_compressed(q, pose=pose, audio=audio)
+        layouts["compressed"].append(q)
+        q = os.path.join(ldir, f"f64_{i}.npz")
+        np.savez(q, pose=pose.astype(np.float64) + 1 / 3, audio=audio.astype(np.float64) / 3,
+                 imgs=np.array([f"frames/{i}_{t:06d}.jpg" for t in range(len(pose))]))
+        layouts["float64_imgs"].append(q)
+    for name, qs in layouts.items():
+        for parted in (True, False):
+            check(all(same(q, parted) for q in qs), f"{name} clips: the core != numpy")
+    check(not nl.REJECTED, f"the core rejected clips of phase 21's layouts: {dict(nl.REJECTED)}")
+    # a 63-frame clip: rejected (-5), read by numpy, counted
+    short_root = os.path.join(ldir, "short")
+    make_synthetic_speaker(short_root, "oliver", num_train=1, num_dev=0)
+    sp = os.path.join(short_root, "oliver", "clip_0000.npz")
+    with np.load(sp) as z:
+        pose, audio = z["pose"], z["audio"]
+    np.savez(sp, pose=pose[:T - 1], audio=audio)
+    item = gd.GestureDataset(short_root, "oliver", apply_overrides(
+        sdt_bp(), ["DATASET.ROOT_DIR", short_root]))[0]
+    st = get_speaker_stat("oliver", 121, True)
+    check(dict(nl.REJECTED) == {-5: 1} and item["poses"].shape == (T - 1, 2, 121)
+          and np.array_equal(item["poses"], gd.load_clip_numpy(sp, T, True, st["mean"],
+                                                                st["std"], L)[0]),
+          f"the 63-frame clip: REJECTED {dict(nl.REJECTED)}, poses {item['poses'].shape}")
+    nl.REJECTED.clear()
+    # one epoch's batches, 8 worker processes: the core here, numpy in a subprocess
+    t0 = time.perf_counter()
+    native_digests = loader_epoch_digests(root)
+    r = subprocess.run([sys.executable, "-c",
+                        "import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+                        "print(json.dumps(chip_smoke.loader_epoch_digests(sys.argv[2])))",
+                        ROOT, root], cwd=ROOT, env=dict(env, SDT_DISABLE_NATIVE="1"),
+                       capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"the numpy epoch's subprocess rc {r.returncode}:\n{r.stderr}")
+    numpy_digests = json.loads(r.stdout.strip().splitlines()[-1])
+    check(len(native_digests) == len(paths) // 32 and native_digests == numpy_digests,
+          f"an epoch's batches: {len(native_digests)} with the core, {len(numpy_digests)} "
+          f"numpy, {sum(a != b for a, b in zip(native_digests, numpy_digests))} differ")
+    epoch_gate_s = time.perf_counter() - t0
+    print(f"[loader] (b) {len(paths)} clips parted and global, 8 DEFLATE'd and 8 float64 + "
+          f"imgs clips: the core = numpy bit for bit ({every_s:.1f} s); REJECTED empty; a "
+          f"63-frame clip rejected -5, read by numpy, counted; epoch 1's "
+          f"{len(native_digests)} batches with 8 workers = SDT_DISABLE_NATIVE=1's "
+          f"({epoch_gate_s:.1f} s)", flush=True)
+
+    # (c) times, not gated: alternated rounds of every arm in this process
+    def to_dev(x):
+        return {k: to_dev(v) for k, v in x.items()} if isinstance(x, dict) else x.to(dev)
+
+    schedule = train_loader(parted_cfg).batch_sampler
+    schedule.set_epoch(1)
+    batches = schedule.index_batches()
+
+    def item_ms():
+        n = min(200, len(ds))
+        t0 = time.perf_counter()
+        for i in range(n):
+            ds[i]
+        return (time.perf_counter() - t0) / n * 1e3
+
+    def loader_rate(loader, epoch, waits=None):
+        """Batches/s of an epoch, each copied to the card; appends to
+        ``waits`` the share of the time the main thread waited for batches."""
+        loader.batch_sampler.set_epoch(epoch)
+        torch.cuda.synchronize()
+        t0, n, wait = time.perf_counter(), 0, 0.0
+        it = iter(loader)
+        while True:
+            t1 = time.perf_counter()
+            b = next(it, None)
+            wait += time.perf_counter() - t1
+            if b is None:
+                break
+            to_dev(b)
+            n += 1
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        if waits is not None:
+            waits.append(wait / took)
+        return n / took
+
+    pool = ThreadPoolExecutor(8)
+
+    def thread_rate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for idx in batches:
+            to_dev(gd.to_torch(gd.stack(list(pool.map(ds.__getitem__, idx))), pin=True))
+        torch.cuda.synchronize()
+        return len(batches) / (time.perf_counter() - t0)
+
+    def page_lock(x):
+        return ({k: page_lock(v) for k, v in x.items()} if isinstance(x, dict)
+                else x.pin_memory())
+
+    def split_ms(nb=10):
+        """A batch's ms in the loader's four steps, done one after another."""
+        parts = collections.Counter()
+        for idx in batches[:nb]:
+            t = [time.perf_counter()]
+            items = [ds[int(i)] for i in idx]
+            t.append(time.perf_counter())
+            host = gd.collate(items)
+            t.append(time.perf_counter())
+            pinned = page_lock(host)
+            t.append(time.perf_counter())
+            to_dev(pinned)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            for k, a, b in zip(("items", "collate", "pin", "copy"), t, t[1:]):
+                parts[k] += (b - a) / nb * 1e3
+        return dict(parts)
+
+    # the hand-off alone: each loader worker moves its collated batch into shared
+    # memory before it sends it; timed in 1 process, and in 8 at once
+    sizes = [v.nbytes for x in gd.collate([ds[int(i)] for i in batches[0]]).values()
+             for v in (x.values() if isinstance(x, dict) else [x])]
+    ctx8 = multiprocessing.get_context("spawn")
+    barrier = ctx8.Barrier(8)
+    share_pool = ctx8.Pool(8, initializer=_share_init, initargs=(barrier,))
+    share_pool.map(_share_memory_ms, [(sizes, 1, True)] * 8, chunksize=1)  # warm
+
+    def share_ms():
+        one = share_pool.apply(_share_memory_ms, ((sizes, 5, False),))
+        eight = share_pool.map(_share_memory_ms, [(sizes, 5, True)] * 8, chunksize=1)
+        return one, sum(eight) / len(eight)
+
+    def workers_loader(workers, numpy_items, pin=True):
+        numpy_route(numpy_items)  # read by the workers, forked at the first epoch
+        lo = train_loader(apply_overrides(sdt_bp(), ["DATASET.ROOT_DIR", root,
+                                                     "SYS.NUM_WORKERS", str(workers)]), dev)
+        if not pin:  # the same loader without page-locking: the main thread receives
+            lo = torch.utils.data.DataLoader(
+                lo.dataset, batch_sampler=lo.batch_sampler, collate_fn=gd.collate,
+                num_workers=workers, persistent_workers=True)
+        loader_rate(lo, 0)  # starts the workers: a warm pool from here on
+        numpy_route(False)
+        return lo
+
+    # the loader's worker processes, warm: numpy and native items at 8 (the
+    # default), and, to find what limits it, native items at 2 workers and at 8
+    # without page-locking (whose receiving runs in the main thread)
+    pools = {"8_workers_numpy": workers_loader(8, True),
+             "8_workers_native": workers_loader(8, False),
+             "2_workers_native": workers_loader(2, False),
+             "8_workers_native_unpinned": workers_loader(8, False, pin=False)}
+    lo0 = train_loader(parted_cfg, dev)
+    counted = collections.Counter()
+    native_fn = nl.load_clip_native
+
+    def counting(*a):
+        got = native_fn(*a)
+        counted["items"] += got is not None
+        return got
+
+    times = collections.defaultdict(list)
+    split = {"numpy": [], "native": []}
+    soa_equal = None
+    for rnd in range(3):
+        for route in ("numpy", "native"):
+            numpy_route(route == "numpy")
+            times[f"item_ms_{route}"].append(item_ms())
+            times[f"batches_per_s_0_workers_{route}"].append(loader_rate(lo0, rnd + 1))
+            for name, lo in pools.items():
+                if name.split("_")[2] == route:
+                    times[f"batches_per_s_{name}"].append(loader_rate(
+                        lo, rnd + 1, times[f"main_wait_share_{name}"]))
+            split[route].append(split_ms())
+            cds = gd.GestureDataset(root, "oliver", apply_overrides(
+                sdt_bp(), ["DATASET.ROOT_DIR", root, "DATASET.CACHING", "True"]))
+            nl.load_clip_native = counting
+            counted.clear()
+            t0 = time.perf_counter()
+            soa = cds.materialize()
+            times[f"materialize_s_{route}"].append(time.perf_counter() - t0)
+            nl.load_clip_native = native_fn
+            check(counted["items"] == (0 if route == "numpy" else len(paths)),
+                  f"materialize() with {route} items: {counted['items']} through the core")
+            if rnd == 0:
+                if route == "numpy":
+                    soa_numpy = soa
+                else:
+                    soa_equal = all(soa[k].tobytes() == soa_numpy[k].tobytes()
+                                    for k in ("audio", "poses", "clip_index"))
+                    check(soa_equal, "materialize(): the core's SoA arrays != numpy's")
+                    del soa_numpy
+            del cds, soa
+        numpy_route(False)
+        times["batches_per_s_8_threads_native"].append(thread_rate())
+        one, eight = share_ms()
+        times["share_memory_ms_1_process"].append(one)
+        times["share_memory_ms_8_processes_at_once"].append(eight)
+    pool.shutdown()
+    share_pool.close()
+    share_pool.join()
+    check(not nl.REJECTED, f"the core rejected clips of phase 10's speaker: {dict(nl.REJECTED)}")
+    del pools, lo0
+    batch_bytes = sum(sizes)
+    split_span = {route: {k: _span([s[k] for s in rounds]) for k in rounds[0]}
+                  for route, rounds in split.items()}
+
+    # (d) the inspectors' command lines
+    ndir, cdir = os.path.join(ldir, "viz_npz"), os.path.join(ldir, "viz_csv")
+    for args, out_dir, want in (
+            (["npz", paths[0], "-o", ndir, "--max-frames", "8"], ndir, 8),
+            (["csv", root, "oliver", "--max-clips", "2", "-o", cdir], cdir, 2 * T)):
+        r = subprocess.run([sys.executable, "-m", "speechdrivestemplates_tpu_torch.utils.viz",
+                            *args], cwd=ROOT, env=env, capture_output=True, text=True,
+                           timeout=300)
+        jpgs = glob.glob(os.path.join(out_dir, "**", "*.jpg"), recursive=True)
+        check(r.returncode == 0 and len(jpgs) == want,
+              f"viz {args[0]}: rc {r.returncode}, {len(jpgs)} jpgs (want {want}):\n{r.stderr}")
+
+    line = {"card": ctx.card, "cpu_count": os.cpu_count(),
+            "sched_affinity": len(os.sched_getaffinity(0)), **build,
+            "clips": len(paths), "batch": len(batches[0]), "batch_bytes": batch_bytes,
+            "every_clip_equal": True, "epoch_batches_equal": True,
+            "materialize_soa_equal": soa_equal, "rounds": 3,
+            **{k: _span(v) for k, v in times.items()},
+            "batch_split_ms": split_span,
+            "phase10_loop_steps_per_s_with_loader": ctx.loop_rates,  # epochs 1, 2
+            "phase10_loader_alone_batches_per_s": ctx.loader_rate,
+            "seconds": time.perf_counter() - t21}
+    print(f"[loader] (c) min-max over 3 alternated rounds: "
+          f"{ {k: line[k] for k in times} }; one B = {len(batches[0])} batch "
+          f"({batch_bytes / 1e6:.2f} MB), ms: {split_span}; (d) viz npz 8 jpgs, csv "
+          f"{2 * T} jpgs; phase 21 took {line['seconds']:.1f} s", flush=True)
+    return {"loader": line}
 
 
 def main() -> None:
@@ -1695,7 +2090,6 @@ def main() -> None:
                "k8_step_ms": 1e3 / k8.rates[1], "k8_counts": k8.counts,
                "k8_rows_equal_k1": True}
     del s_loops, k1, k8, cache_s2g, sgloader
-    shutil.rmtree(long_root, ignore_errors=True)
 
     # (d) the command line: train with validation, test, resume, serve
     sruns = os.path.join(work, "s2g_runs")
@@ -2487,6 +2881,12 @@ def main() -> None:
         root=root, ckpt=ckpt, s2g_ckpt=c_s2g_resumed["checkpoint"], clip=clips[24.0], em=em,
         card=card, work=work, dev=dev, report=report))
 
+    # ---- 21. loader: the native item loader, what limits the loader -------------------
+    loader_line = loader_phase(SimpleNamespace(
+        root=long_root, work=work, dev=dev, card=card, loop_rates=loop_rates,
+        loader_rate=loader_rate))
+    shutil.rmtree(long_root, ignore_errors=True)
+
     # ---- summary -----------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2501,6 +2901,7 @@ def main() -> None:
     print(json.dumps(export_line))
     print(json.dumps(video_line))
     print(json.dumps(parallel_line))
+    print(json.dumps(loader_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

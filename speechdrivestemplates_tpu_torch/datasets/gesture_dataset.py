@@ -33,6 +33,18 @@ item is read once and kept; ``materialize()`` stacks the whole split once into
 structure-of-arrays numpy arrays (``speaker_stat`` nested), and
 ``gather(indices)`` makes a batch of one fancy-indexed slice per key. These
 arrays are what the trainer stages on the card (DATASET.DEVICE_CACHE).
+
+A 121-keypoint item (DATASET.NUM_LANDMARKS 121, as in JAX) is read by the
+native C++ core (``native_loader.load_clip_native``), else, or where
+``SDT_DISABLE_NATIVE`` is set or the core rejects the clip, by numpy
+(``load_clip_numpy``); the two give the same item bit for bit. A train or val
+dataset builds and loads the core when it is made, so the loader's worker
+processes, forked later, inherit it built.
+
+    python -m speechdrivestemplates_tpu_torch.datasets.gesture_dataset [root] [speaker]
+
+prints the configuration and the train split's size, and writes item 0's
+first 8 frames, drawn, under a new temporary directory (JAX's smoke run).
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ import torch
 
 from ..ops import pose as pose_ops
 from ..utils.audio import crop_pad_audio, load_wav, parse_audio_length
+from . import native_loader
 from .speakers_stat import get_speaker_stat
 
 
@@ -96,6 +109,8 @@ class GestureDataset:
             self.clips = self.clips[: self.cfg.SUBSET]
         self.audio_length, self.num_frames = parse_audio_length(
             self.cfg.AUDIO_LENGTH, self.cfg.AUDIO_SR, self.cfg.FPS)
+        if split != "demo" and self.cfg.NUM_LANDMARKS == 121:
+            native_loader.native_available()  # built here, before any worker forks
 
     def __len__(self) -> int:
         return len(self.clips)
@@ -130,16 +145,19 @@ class GestureDataset:
         clip = self.clips[idx]
         parted = self.cfg.HIERARCHICAL_POSE
         stat = get_speaker_stat(clip["speaker"], 121, parted=parted)
-        with np.load(os.path.join(clip["_dir"], clip["pose_fn"])) as arr:
-            audio = crop_pad_audio(np.asarray(arr["audio"], np.float32), self.audio_length)
-            pose = np.asarray(arr["pose"][: self.cfg.NUM_FRAMES], np.float32)
-        rel = pose_ops.absolute_to_relative(pose_ops.remove_unused_kp(pose))
-        if parted:
-            rel = pose_ops.global_to_parted(rel)
-        poses = pose_ops.normalize_poses(rel[:, :2, :], stat["mean"], stat["std"],
-                                         self.cfg.NUM_LANDMARKS).astype(np.float32)
-        item = {"audio": audio.astype(np.float32), "poses": poses,
-                "clip_index": np.int64(idx), "speaker_stat": stat}
+        path = os.path.join(clip["_dir"], clip["pose_fn"])
+        got = None
+        if self.cfg.NUM_LANDMARKS == 121:
+            got = native_loader.load_clip_native(path, self.cfg.NUM_FRAMES, parted,
+                                                 stat["mean"], stat["std"], self.audio_length)
+        if got is None:
+            poses, audio = load_clip_numpy(path, self.cfg.NUM_FRAMES, parted, stat["mean"],
+                                           stat["std"], self.audio_length,
+                                           self.cfg.NUM_LANDMARKS)
+        else:
+            poses, _, audio = got
+        item = {"audio": audio, "poses": poses, "clip_index": np.int64(idx),
+                "speaker_stat": stat}
         if not parted:
             item["speaker_stat_global"] = get_speaker_stat(clip["speaker"], 121, parted=False)
         return item
@@ -164,6 +182,23 @@ class GestureDataset:
                 "speaker_stat": get_speaker_stat(self.speaker, 121,
                                                  parted=c.HIERARCHICAL_POSE),
                 "num_frames": np.int32(num_frames)}
+
+
+def load_clip_numpy(path: str, num_frames: int, hierarchical: bool, mean: np.ndarray,
+                    std: np.ndarray, audio_len: int, num_landmarks: int = 121):
+    """``(poses (T, 2, K), audio (audio_len,))``, float32, of the clip npz at
+    ``path`` by numpy: its first ``num_frames`` poses taken to 121 keypoints,
+    root-centred, re-rooted per part where ``hierarchical``, z-scored with
+    ``mean`` / ``std`` (2K,); its audio cropped or zero-padded. The native
+    core's plain version, and the route of other layouts."""
+    with np.load(path) as arr:
+        audio = crop_pad_audio(np.asarray(arr["audio"], np.float32), audio_len)
+        pose = np.asarray(arr["pose"][:num_frames], np.float32)
+    rel = pose_ops.absolute_to_relative(pose_ops.remove_unused_kp(pose))
+    if hierarchical:
+        rel = pose_ops.global_to_parted(rel)
+    poses = pose_ops.normalize_poses(rel[:, :2, :], mean, std, num_landmarks)
+    return poses.astype(np.float32), audio.astype(np.float32)
 
 
 def _take(tree, idx):
@@ -263,3 +298,30 @@ class CachedLoader:
         for idx in self.batch_sampler.index_batches():
             yield to_torch(self.dataset.gather(idx), self.pin)
 
+
+if __name__ == "__main__":
+    import sys
+    import tempfile
+
+    import cv2
+
+    from ..config import load_config
+    from ..utils.viz import vis_relative_pose_clip
+
+    opts = ["DATASET.ROOT_DIR", sys.argv[1]] if len(sys.argv) > 1 else []
+    opts += ["DATASET.SPEAKER", sys.argv[2]] if len(sys.argv) > 2 else []
+    cfg = load_config(None, opts)
+    print(cfg)
+    ds = GestureDataset(cfg.DATASET.ROOT_DIR, cfg.DATASET.SPEAKER, cfg)
+    print(f"{len(ds)} train clips")
+    sample, k = ds[0], cfg.DATASET.NUM_LANDMARKS
+    stat = sample["speaker_stat"]
+    rel = sample["poses"] * stat["std"].reshape(1, 2, k) + stat["mean"].reshape(1, 2, k)
+    if cfg.DATASET.HIERARCHICAL_POSE:
+        rel = pose_ops.parted_to_global(torch.from_numpy(rel)).numpy()
+    frames = vis_relative_pose_clip(rel[:8], (720, 1280))
+    out_dir = tempfile.mkdtemp(prefix="sdt_dataset_smoke_")
+    for i, frame in enumerate(frames):
+        if not cv2.imwrite(f"{out_dir}/frame_{i:03d}.jpg", frame):
+            raise OSError(f"cv2 could not write {out_dir}/frame_{i:03d}.jpg")
+    print(f"wrote {len(frames)} rendered frames to {out_dir}")

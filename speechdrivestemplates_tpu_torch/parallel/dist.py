@@ -363,13 +363,14 @@ def _spawn_once(fn, world, args, device, backend, init_method, timeout_s):
     return [results[r] for r in range(world)]
 
 
-def spawn(fn: Callable, world: int, args: tuple = (), device="cpu",
+def spawn(fn: Callable, world: int, args: tuple = (), device="cuda",
           backend: Optional[str] = None, addr: str = "localhost", port: Optional[int] = None,
           timeout_s: Optional[float] = None, attempts: int = 3) -> List[object]:
     """Run ``fn(rank, device, *args)`` on ``world`` ranks of this host, each a
     process started by ``spawn`` (a fresh interpreter: ``fn`` and ``args``
     are pickled) with a process group at ``tcp://addr:port`` over
-    ``backend``, on ``rank_device(device, rank)``. Returns the ranks' return
+    ``backend``, on ``rank_device(device, rank)`` (the card unless ``device``
+    is "cpu", as at every entry point). Returns the ranks' return
     values in rank order (tensors moved to the CPU). Raises the first rank
     failure with its traceback, TimeoutError past ``timeout_s`` (None: no
     limit; every rank is then killed), and SystemExit with a rank's code

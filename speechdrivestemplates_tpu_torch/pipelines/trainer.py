@@ -151,7 +151,10 @@ def train_loader(cfg, device=None):
     a process group: with DATASET.CACHING a ``CachedLoader`` over the split's
     SoA arrays, else SYS.NUM_WORKERS worker processes that live as long as
     the loader. Batches for the card (``device``) come in page-locked
-    memory."""
+    memory. The dataset builds and loads the native item loader when it is
+    made, here, so the workers fork with it built (``datasets/
+    native_loader.py``; the eval loader and the device cache's
+    ``materialize`` read through the same datasets)."""
     dataset = GestureDataset(cfg.DATASET.ROOT_DIR, cfg.DATASET.SPEAKER, cfg)
     bs = rank_batch(cfg.TRAIN.BATCH_SIZE, "TRAIN.BATCH_SIZE")
     if -(-len(dataset) // pdist.world_size()) < bs:

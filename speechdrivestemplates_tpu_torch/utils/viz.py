@@ -7,9 +7,25 @@ white canvas, the pred | gt pair (pred at 0.33 W, gt at 0.67 W), and the
 demo's filmstrip (every 8th frame on one long canvas). Frames are BGR uint8,
 as cv2 writes them. cv2 is imported where a frame is drawn, so that the port
 imports without it; drawing without it raises.
+
+The offline inspectors of training data, headless (JAX's, after the
+reference's interactive ``cv2.imshow`` ones): ``vis_train_npz`` draws a clip
+npz's raw 137-keypoint poses, over the video frames its ``imgs`` entry names
+with ``align_image``; ``vis_train_csv_dir`` does so for each clip a training csv
+lists; ``vis_pose_npy`` draws one pose npy. From the command line:
+
+    python -m speechdrivestemplates_tpu_torch.utils.viz npz <clip.npz> [-o DIR]
+        [--align-image] [--max-frames N]
+    python -m speechdrivestemplates_tpu_torch.utils.viz csv <data_root> <speaker>
+        [-o DIR] [--align-image] [--max-frames N] [--max-clips N] [--csv PATH]
+
+Frames go to ``frame_{i:06d}.jpg``, one directory per clip for ``csv``;
+without ``-o``, under a new temporary directory.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -118,3 +134,125 @@ def draw_pose_frames_in_long_img(poses: np.ndarray) -> np.ndarray:
         x0 = int(i // interval * pose_step)
         draw_body_parts(canvas[:, x0: x0 + w, :], poses[i] + np.array([[w // 2, h // 2]]))
     return canvas
+
+
+def _write(cv2, path: str, img: np.ndarray) -> None:
+    if not cv2.imwrite(path, img):
+        raise OSError(f"cv2 could not write {path}")
+
+
+def vis_train_npz(npz_path: str, out_dir=None, max_frames=None, align_image: bool = False):
+    """The frames of a clip npz's (T, 3, 137) ``pose``: each skeleton on a
+    flat 240-grey 720 x 1280 canvas or, with ``align_image``, over the video
+    frame its ``imgs`` entry names (the canvas where that image does not
+    read); the first ``max_frames`` (None: all). Written to
+    ``out_dir/frame_{i:06d}.jpg`` where ``out_dir`` is given."""
+    import cv2
+
+    items = np.load(npz_path, allow_pickle=True)
+    poses = items["pose"]
+    imgs = items["imgs"] if align_image and "imgs" in items else None
+    n = len(poses) if max_frames is None else min(max_frames, len(poses))
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+    frames = []
+    for i in range(n):
+        img = None
+        if imgs is not None and i < len(imgs):
+            path = imgs[i]
+            path = path.decode("utf-8") if isinstance(path, bytes) else str(path)
+            img = cv2.imread(path) if path else None
+        if img is None:
+            img = np.zeros((720, 1280, 3), dtype=np.uint8) + 240
+        draw_body_parts(img, poses[i].transpose(1, 0)[:, :2], size=2)
+        frames.append(img)
+        if out_dir is not None:
+            _write(cv2, os.path.join(out_dir, f"frame_{i:06d}.jpg"), img)
+    return frames
+
+
+def vis_train_csv_dir(data_root: str, speaker: str, num_kp: int = 137, out_dir=None,
+                      align_image: bool = False, max_frames=None, max_clips=None,
+                      csv_path=None) -> list:
+    """``vis_train_npz`` of each clip a training csv lists, the first
+    ``max_clips`` (None: all): the reference's
+    ``<data_root>/train_<speaker>_<num_kp>_3.csv`` (absolute ``pose_fn``)
+    where it exists, else ``<data_root>/<speaker>/processed_137.csv``
+    (``pose_fn`` relative to the speaker directory), or ``csv_path``. A
+    clip's frames go to ``out_dir/<clip name>/``. Returns the clips' paths."""
+    import csv
+
+    speaker_dir = os.path.join(data_root, speaker)
+    if csv_path is None:
+        csv_path = os.path.join(data_root, f"train_{speaker}_{num_kp}_3.csv")
+        if not os.path.exists(csv_path):
+            csv_path = os.path.join(speaker_dir, "processed_137.csv")
+    if not os.path.exists(csv_path):
+        raise FileNotFoundError(csv_path)
+    rendered = []
+    with open(csv_path, newline="") as f:
+        for row in csv.DictReader(f):
+            if max_clips is not None and len(rendered) >= max_clips:
+                break
+            npz_path = row["pose_fn"]
+            if not os.path.isabs(npz_path):
+                npz_path = os.path.join(speaker_dir, npz_path)
+            clip_out = None
+            if out_dir is not None:
+                clip_out = os.path.join(out_dir,
+                                        os.path.splitext(os.path.basename(npz_path))[0])
+            vis_train_npz(npz_path, out_dir=clip_out, max_frames=max_frames,
+                          align_image=align_image)
+            rendered.append(npz_path)
+    return rendered
+
+
+def vis_pose_npy(npy_path: str, out_path=None) -> np.ndarray:
+    """One pose npy, (3, K) or (K, >= 2), drawn on a black 720 x 1280 canvas;
+    written to ``out_path`` where it is given."""
+    import cv2
+
+    pose = np.load(npy_path)
+    img = np.zeros((720, 1280, 3), dtype=np.uint8)
+    draw_body_parts(img, pose.T[:, :2] if pose.shape[0] == 3 else pose[:, :2])
+    if out_path is not None:
+        _write(cv2, out_path, img)
+    return img
+
+
+def main(argv=None) -> None:
+    import argparse
+    import tempfile
+
+    ap = argparse.ArgumentParser(description="offline keypoint inspectors")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    npz = sub.add_parser("npz", help="render one training clip npz")
+    npz.add_argument("npz_path")
+    npz.add_argument("-o", "--out_dir", default=None)
+    npz.add_argument("--align-image", action="store_true",
+                     help="draw over the clip's original video frames")
+    npz.add_argument("--max-frames", type=int, default=None)
+    csv = sub.add_parser("csv", help="batch-inspect every clip in a csv")
+    csv.add_argument("data_root")
+    csv.add_argument("speaker")
+    csv.add_argument("-o", "--out_dir", default=None)
+    csv.add_argument("--align-image", action="store_true")
+    csv.add_argument("--max-frames", type=int, default=None)
+    csv.add_argument("--max-clips", type=int, default=None)
+    csv.add_argument("--csv", dest="csv_path", default=None)
+    args = ap.parse_args(argv)
+
+    out = args.out_dir or tempfile.mkdtemp(prefix="sdt_viz_")
+    if args.cmd == "npz":
+        frames = vis_train_npz(args.npz_path, out_dir=out, max_frames=args.max_frames,
+                               align_image=args.align_image)
+        print(f"rendered {len(frames)} frames to {out}")
+    else:
+        clips = vis_train_csv_dir(args.data_root, args.speaker, out_dir=out,
+                                  align_image=args.align_image, max_frames=args.max_frames,
+                                  max_clips=args.max_clips, csv_path=args.csv_path)
+        print(f"rendered {len(clips)} clips to {out}")
+
+
+if __name__ == "__main__":
+    main()

@@ -231,7 +231,7 @@ def runs(speaker, jax_step):
     specs = [{"preset": "sdt_bp", "root": speaker, "weights": jax_step["weights"], "steps": 2},
              {"preset": "s2g", "root": speaker, "steps": 1, "double": True, "eval": False},
              {"preset": "pose2pose", "root": speaker, "steps": 2, "double": True}]
-    ranks = pdist.spawn(_steps_worker, 2, (specs,), timeout_s=RANK_TIMEOUT_S)
+    ranks = pdist.spawn(_steps_worker, 2, (specs,), device="cpu", timeout_s=RANK_TIMEOUT_S)
     out = {}
     for i, spec in enumerate(specs):
         r0, r1 = ranks[0][i], ranks[1][i]
@@ -363,7 +363,8 @@ def test_checkpoint_by_rank_0_and_a_resume_on_two_ranks(speaker, tmp_path):
     reports the same run."""
     from speechdrivestemplates_tpu_torch.utils.weights import read_pth
 
-    r0, r1 = pdist.spawn(_resume_worker, 2, (speaker, str(tmp_path)), timeout_s=RANK_TIMEOUT_S)
+    r0, r1 = pdist.spawn(_resume_worker, 2, (speaker, str(tmp_path)), device="cpu",
+                         timeout_s=RANK_TIMEOUT_S)
     assert r0 == r1
     for where in ("straight", "resumed"):
         assert len(os.listdir(tmp_path / where)) == 1

@@ -40,6 +40,33 @@ def test_port_and_chip_smoke_import_no_jax_nor_jax_package():
     assert not {k: v for k, v in bad.items() if v}, bad
 
 
+def test_port_neither_names_nor_loads_the_jax_native_core(tmp_path):
+    """The port builds its own item loader (``csrc/sdt_dataio.cpp`` into
+    ``build/``): no file of it or ``chip_smoke.py`` names the repository's
+    ``native/`` directory, and its items load no ``native/libsdt_dataio.so``."""
+    import re
+
+    names = re.compile(r"(?<![\w.-])native/|(join|Path)\(.*[\"']native[\"']")
+    files = [f for f in sorted(PORT.rglob("*")) if f.suffix in (".py", ".cpp", ".cu")]
+    bad = [f"{f.relative_to(ROOT)}:{i}" for f in files + [ROOT / "chip_smoke.py"]
+           for i, line in enumerate(f.read_text().splitlines(), 1) if names.search(line)]
+    assert not bad, bad
+    code = ("import sys; from speechdrivestemplates_tpu_torch.datasets import native_loader as nl; "
+            "from speechdrivestemplates_tpu_torch.datasets.speakers_stat import get_speaker_stat; "
+            "from speechdrivestemplates_tpu_torch.datasets.synthetic import "
+            "make_synthetic_speaker as m; m(sys.argv[1], 'oliver', num_train=1, num_dev=0); "
+            "st = get_speaker_stat('oliver', 121, True); "
+            "assert nl.load_clip_native(sys.argv[1] + '/oliver/clip_0000.npz', 64, True, "
+            "st['mean'], st['std'], 68266) is not None; "
+            "print('\\n'.join(l.split()[-1] for l in open('/proc/self/maps') "
+            "if 'libsdt_dataio' in l))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert set(r.stdout.split()) == {str(ROOT / "build" / "libsdt_dataio.so")}, r.stdout
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import speechdrivestemplates_tpu_torch.serving, "
             "speechdrivestemplates_tpu_torch.ops.stem, "

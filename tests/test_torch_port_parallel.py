@@ -37,7 +37,7 @@ def rank_threads():
 
 
 def _spawn(fn, world, *args):
-    return pdist.spawn(fn, world, args, timeout_s=RANK_TIMEOUT_S)
+    return pdist.spawn(fn, world, args, device="cpu", timeout_s=RANK_TIMEOUT_S)
 
 
 # ---- JAX's shards -------------------------------------------------------------------

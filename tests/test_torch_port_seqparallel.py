@@ -125,7 +125,8 @@ def _seq_worker(rank, device, path, mel, code):
 def port_ranks(request, jax_cases):
     n = request.param
     return n, pdist.spawn(_seq_worker, n, (jax_cases["path"], jax_cases["mel"],
-                                           jax_cases["code"]), timeout_s=RANK_TIMEOUT_S)
+                                           jax_cases["code"]), device="cpu",
+                          timeout_s=RANK_TIMEOUT_S)
 
 
 @pytest.mark.parametrize("case", CASES, ids=[f"{n}-{'code' if c else 'nocode'}"
