@@ -33,9 +33,11 @@ Entry points run on the card unless the caller passes ``device="cpu"``:
 ``--test_only``, ``--demo_input`` and ``--export``), ``run_artifact.py``,
 ``chain_e2e`` (the paper's chain at ``bench_e2e.py``'s budget),
 ``serving.build_serving_fn``, ``python -m speechdrivestemplates_tpu_torch.serving``
-and ``models.build_model``. Four more measure the card:
-``profile_serving`` and ``profile_train`` (device time by kernel of the
-serving forward and of the train step), ``profile_kernels`` (the conv1
-kernel and the tap-shift probe, ``ops/shift_probe.py``, beside cuDNN) and
-``profile_dispatch`` (host time where the host sets the pace).
+and ``models.build_model``. Three more measure the card:
+``profile_train`` (device time by kernel of the train step),
+``profile_kernels`` (the conv1 kernel and the tap-shift probe,
+``ops/shift_probe.py``, beside cuDNN) and ``profile_dispatch`` (host time
+where the host sets the pace). The serving forward is measured by the
+benchmark's serving cells (``BENCHMARK.json``); under any ``torch.profiler``
+session the port records its own spans (``utils/trace.py``).
 """

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from ..ops import stem as stem_ops
 from ..ops.resize import interpolate_bilinear, interpolate_linear_time
+from ..utils import trace
 from .blocks import ConvNormRelu, lecun_conv1d
 
 # (out channels, extra ConvNormRelu arguments) of the audio encoder's 8 layers;
@@ -67,13 +68,15 @@ class AudioEncoder(nn.Module):
         else:
             stem = (stem_ops.stem_plain if plain or self.training
                     else stem_ops.audio_encoder_stem)
-            x = stem(mel, *(layers[i].conv.weight for i in range(3)),
-                     slope=self.slope, dtype=self.dtype)  # (B, 40, W2, 128)
+            with trace.span("encoder.stem"):
+                x = stem(mel, *(layers[i].conv.weight for i in range(3)),
+                         slope=self.slope, dtype=self.dtype)  # (B, 40, W2, 128)
             x, layers = x.permute(0, 3, 1, 2), layers[3:]
-        for layer in layers:
-            x = layer(x)
-        # (B, 256, H', W') -> bilinear to (1, num_frames), no antialiasing
-        return interpolate_bilinear(x, (1, num_frames))[:, :, 0, :]
+        with trace.span("encoder.layers"):
+            for layer in layers:
+                x = layer(x)
+            # (B, 256, H', W') -> bilinear to (1, num_frames), no antialiasing
+            return interpolate_bilinear(x, (1, num_frames))[:, :, 0, :]
 
 
 class UNet1D(nn.Module):
@@ -145,17 +148,19 @@ class SequenceGeneratorCNN(nn.Module):
         the compute dtype. ``plain`` runs an IN stem's plain version even on
         the card in eval mode (a reference); train mode always does."""
         x = self.audio_encoder(mel, num_frames, plain)  # (B, 256, T)
-        if self.code_dim is not None:
-            if code is None:
-                raise ValueError("this generator takes a clip code")
-            if code.ndim == 2:
-                code = code[:, :, None].expand(-1, -1, x.shape[-1])
-            x = torch.cat([x, code.to(x.dtype)], dim=1)
-        x = self.unet(x)
-        for layer in self.decoder[:4]:
-            x = layer(x)
-        out = self.decoder[4]
-        x = F.conv1d(x, out.weight.to(self.dtype), out.bias.to(self.dtype))
-        # (B, 2K, T) -> (B, T, 2K) -> (B, T, 2, K): channel = coord * K + k
-        return x.transpose(1, 2).reshape(x.shape[0], num_frames, 2,
-                                         self.num_landmarks)
+        with trace.span("unet"):
+            if self.code_dim is not None:
+                if code is None:
+                    raise ValueError("this generator takes a clip code")
+                if code.ndim == 2:
+                    code = code[:, :, None].expand(-1, -1, x.shape[-1])
+                x = torch.cat([x, code.to(x.dtype)], dim=1)
+            x = self.unet(x)
+        with trace.span("decoder"):
+            for layer in self.decoder[:4]:
+                x = layer(x)
+            out = self.decoder[4]
+            x = F.conv1d(x, out.weight.to(self.dtype), out.bias.to(self.dtype))
+            # (B, 2K, T) -> (B, T, 2K) -> (B, T, 2, K): channel = coord * K + k
+            return x.transpose(1, 2).reshape(x.shape[0], num_frames, 2,
+                                             self.num_landmarks)

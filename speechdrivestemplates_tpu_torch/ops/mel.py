@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..utils import trace
 
 N_FFT = 512
 WIN_LENGTH = 400
@@ -156,7 +157,8 @@ def mel_spectrogram_kernel(audio: torch.Tensor) -> torch.Tensor:
 def mel_spectrogram(audio: torch.Tensor) -> torch.Tensor:
     """Power mel spectrogram of a waveform batch: (..., L) -> (..., 80, T) with
     T = L // 160 + 1. The kernel on CUDA, the plain version on the CPU."""
-    if audio.device.type == "cpu":
-        return mel_spectrogram_plain(audio)
-    return mel_spectrogram_kernel(audio)
+    with trace.span("mel"):
+        if audio.device.type == "cpu":
+            return mel_spectrogram_plain(audio)
+        return mel_spectrogram_kernel(audio)
 

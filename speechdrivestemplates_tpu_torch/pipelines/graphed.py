@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils import trace
 
 
 def gather(cache, idx: torch.Tensor):
@@ -91,19 +92,24 @@ class ChunkRunner:
         if not self.graphed:
             return self._rows(chunk)
         if not self.warm:  # real steps on the capture stream: lazy constants, workspaces
-            self.stream.wait_stream(torch.cuda.current_stream(dev))
-            chunk.record_stream(self.stream)
-            with torch.cuda.stream(self.stream):
-                out = self._rows(chunk)
-            torch.cuda.current_stream(dev).wait_stream(self.stream)
+            with trace.span("chunk.warm"):
+                self.stream.wait_stream(torch.cuda.current_stream(dev))
+                chunk.record_stream(self.stream)
+                with torch.cuda.stream(self.stream):
+                    out = self._rows(chunk)
+                torch.cuda.current_stream(dev).wait_stream(self.stream)
             self.warm = True
             return out
-        g = self.graphs.get(len(chunk)) or self._capture(len(chunk), chunk.shape[1])
-        g.idx.copy_(chunk)
-        g.graph.replay()
-        kernels.REPLAYED.update(g.launches)
-        self.state.step += len(chunk)
-        return g.out.clone()
+        g = self.graphs.get(len(chunk))
+        if g is None:
+            with trace.span("chunk.capture"):
+                g = self._capture(len(chunk), chunk.shape[1])
+        with trace.span("chunk.replay"):
+            g.idx.copy_(chunk)
+            g.graph.replay()
+            kernels.REPLAYED.update(g.launches)
+            self.state.step += len(chunk)
+            return g.out.clone()
 
     def _capture(self, length: int, batch: int) -> SimpleNamespace:
         dev, state = self.state.device, self.state

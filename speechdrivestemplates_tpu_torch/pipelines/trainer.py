@@ -75,6 +75,7 @@ from ..datasets.gesture_dataset import (CachedLoader, EpochBatches, GestureDatas
                                         shard_indices, to_torch)
 from ..ops.fgd import compute_fgd
 from ..parallel import dist as pdist
+from ..utils import trace
 from ..utils.device import resolve_device
 from ..utils.tb_native import NativeTBWriter
 from ..utils.video import VideoWriter
@@ -344,7 +345,8 @@ class Profiler:
     activity) over the global steps [START_STEP, START_STEP + NUM_STEPS),
     opened and closed by range at the steps ``at`` sees, so under
     TRAIN.STEPS_PER_DISPATCH on chunk boundaries (the JAX ``_maybe_profile``).
-    The Chrome trace goes to OUT_DIR or ``<run>/profile``."""
+    The Chrome trace goes to OUT_DIR or ``<run>/profile``, with the window's
+    port spans (``utils/trace.py``) on a row of their own."""
 
     def __init__(self, cfg, base_path: Optional[str], device: torch.device):
         self.cfg, self.device, self.prof, self.first = cfg.SYS.PROFILE, device, None, 0
@@ -362,6 +364,7 @@ class Profiler:
             os.makedirs(self.out, exist_ok=True)
             self.prof, self.first = profile(activities=acts), global_step
             self.prof.start()
+            trace.reset()
             log.info("starting torch.profiler trace at global step %d -> %s", global_step,
                      self.out)
         elif self.prof is not None and global_step >= end:
@@ -375,6 +378,7 @@ class Profiler:
         self.prof.stop()
         path = os.path.join(self.out, f"trace_steps-{self.first}-{last_step}.json")
         self.prof.export_chrome_trace(path)
+        trace.add_to_chrome_trace(path)
         self.prof = None
         log.info("stopped torch.profiler trace: %s", path)
 

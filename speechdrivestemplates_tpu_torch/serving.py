@@ -42,6 +42,7 @@ from .datasets.speakers_stat import get_speaker_stat
 from .models import build_model
 from .ops.mel import mel_spectrogram
 from .ops.pose import get_final_results
+from .utils import trace
 from .utils.audio import load_wav
 from .utils.device import resolve_device
 from .utils.weights import load_reference_pth
@@ -74,10 +75,12 @@ class ServingModule(nn.Module):
         if self.has_code and code is None:
             raise ValueError("this model takes a template code")
         B = audio.shape[0]
-        mel = mel_spectrogram(audio)
-        pred = self.model(mel, self.num_frames, code if self.has_code else None)
-        return get_final_results(pred, self.mean.expand(B, -1), self.std.expand(B, -1),
-                                 self.scale.expand(B), self.hierarchical, self.num_kp)
+        with trace.span("serve.forward"):
+            mel = mel_spectrogram(audio)
+            pred = self.model(mel, self.num_frames, code if self.has_code else None)
+            with trace.span("final"):
+                return get_final_results(pred, self.mean.expand(B, -1), self.std.expand(B, -1),
+                                         self.scale.expand(B), self.hierarchical, self.num_kp)
 
 
 def build_serving_fn(cfg, state_dict: Dict[str, torch.Tensor],

@@ -6,11 +6,12 @@ counterpart of the JAX package's ``utils/export.py``.
 as ``build_serving_fn`` runs them) with ``torch.export.export`` at static
 example inputs, drops the host-only checks the trace records beside each
 ``.to()`` (``drop_metadata_asserts``: on an H100 they added 0.73 ms to a
-B = 128 call and 1.90 ms to a B = 1 call, ``profile_serving.py
---artifact``), and writes the program with ``torch.export.save``: the
-generator's weights and the speaker's statistics are baked in. Shapes are
-static, as in JAX's: one artifact per (batch, audio length) serving point.
-``<path>.json`` is a sidecar with the calling convention.
+B = 128 call and 1.90 ms to a B = 1 call), and writes the program with
+``torch.export.save``: the generator's weights and the speaker's statistics
+are baked in. Shapes are static, as in JAX's: one artifact per (batch, audio
+length) serving point. ``<path>.json`` is a sidecar with the calling
+convention. The port's spans (``utils/trace.py``) are host code, off outside
+a profiler session: the graph holds none of them.
 
 The artifact holds the route of the device it was exported on. Exported on
 the card, its graph calls the kernels as ``torch.ops.sdt.*`` (the export
