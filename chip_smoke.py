@@ -21,8 +21,10 @@ Phases, each of which must pass or the script exits non-zero:
               (128, 4480, C) x (9, C, C) for C = 64 and 128, within one bf16 rounding
   7. serve    SDT-BP, bf16, full width, seeded weights: three requests (B = 1, 16, 128)
               through build_serving_fn; the mel, conv1 and stem launch counters must read
-              1, 2, 3 after the requests; the B=128 result is held to an fp32 all-plain
-              forward
+              1, 2, 3 after the requests (each a signature's first, eager call); the B=128
+              request called twice more (its graph captured and replayed, then replayed)
+              runs each kernel once a call and matches the eager call (rel L2 < 1e-3, bit
+              equality reported); the B=128 result is held to an fp32 all-plain forward
   8. cli      the serving command line on a seeded wav and a reference-layout .pth
   9. probe    the kernel-probe command line (profile_kernels, both probes) in a
               subprocess: rc 0, its JSON line, both of its kernels launched
@@ -107,7 +109,8 @@ Phases, each of which must pass or the script exits non-zero:
               windows as one batch) launches each kernel once and is held to its fp32
               all-plain version, and the three kernels to their plain versions on its
               window batch; a streaming session fed 0.5 s chunks through
-              build_serving_fn launches each kernel once a window and is held to the
+              build_serving_fn runs each kernel once a window (kernels.executions():
+              its windows replay one graph) and is held to the
               windowed demo at rel L2 < 0.02 (B = 1 against B = n: cuDNN may round
               otherwise), which a session with an 8-frame halo must fail; ms a clip and
               the real-time factor of every route and length;
@@ -1348,6 +1351,19 @@ def main() -> None:
     for name, counts in growth.items():
         check(counts == [1, 2, 3], f"{name} kernel launches per request: {counts}")
         report[name]["launches"] = launches[name]
+    # the B = 128 request's second call captures its graph and replays it, the third
+    # replays: each runs every kernel once more, and returns the eager call's poses
+    eager128 = poses
+    again = [fn(*requests[-1]) for _ in range(2)]
+    torch.cuda.synchronize()
+    executed = {n: kernels.executions()[n] for n in ("mel", "conv1", "stem")}
+    check(dict(fn.routes) == {"eager": 3, "captured": 1, "replayed": 1}
+          and executed == {"mel": 5, "conv1": 5, "stem": 5},
+          f"B=128 called again: routes {dict(fn.routes)}, kernels ran {executed}")
+    replay_rel = max(_rel_l2(p, eager128) for p in again)
+    replay_equal = all(bool(torch.equal(p, eager128)) for p in again)
+    check(replay_rel < 1e-3, f"B=128 graph replay vs the eager call: rel L2 {replay_rel}")
+    report["serve_replay"] = {"rel_l2_vs_eager": replay_rel, "bit_identical": replay_equal}
 
     audio, code = requests[-1]
     model16 = build_model(cfg.VOICE2POSE.GENERATOR.NAME, cfg, device="cuda")
@@ -1365,7 +1381,8 @@ def main() -> None:
     fwd_ms = cuda_ms(fn, [requests[-1]], 20)
     fps = 128 * 64 / (fwd_ms / 1e3)
     print(f"[serve] SDT-BP bf16 B=1,16,128 ok; launch counts after each request "
-          f"{growth}; B=128 vs fp32 plain: "
+          f"{growth}; B=128's graph replay vs its eager call: rel L2 {replay_rel:.3e} "
+          f"(bit for bit {replay_equal}); B=128 vs fp32 plain: "
           f"rel L2 {rel_l2:.4e}, corr {corr:.6f}; forward {fwd_ms:.4f} ms = "
           f"{fps:.1f} pose-frames/s", flush=True)
     del model16, model32, out16, out32
@@ -2150,7 +2167,10 @@ def main() -> None:
     from speechdrivestemplates_tpu_torch.utils.weights import load_reference_pth
 
     def in_counts():
-        return {n: kernels.LAUNCHES.get(n, 0) for n in ("mel", "conv1", "stem")}
+        """The kernels that ran since the counters were zeroed: eager launches and
+        graph replays alike (a streaming session replays its window's graph)."""
+        ran = kernels.executions()
+        return {n: ran.get(n, 0) for n in ("mel", "conv1", "stem")}
 
     # (a) the kernels at the demo's widest shapes, 24 s of audio: B1 on (1, 384000),
     # B3 on (1, 80, 2401), B2 on B3's (1, 82, 2401, 64) bf16 output
@@ -2412,7 +2432,7 @@ def main() -> None:
         streamed = torch.from_numpy(stream(audio))[None].to(dev)
         n = in_counts()
         check(n == {"mel": n_win, "conv1": n_win, "stem": n_win},
-              f"streaming {sec} s in 0.5 s chunks ({n_win} windows) launched {n}")
+              f"streaming {sec} s in 0.5 s chunks ({n_win} windows) ran {n}")
         demo_launches.update(n)
         s_rel, s_corr = motion_gate(streamed, out_win, b, f"streaming {sec} s vs windowed",
                                     STREAM_REL_L2)

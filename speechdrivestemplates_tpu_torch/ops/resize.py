@@ -42,14 +42,25 @@ def _resize_tensor(in_len: int, out_len: int, dtype: torch.dtype,
         return torch.from_numpy(_resize_matrix(in_len, out_len)).to(device, dtype)
 
 
+# the matrices a CUDA graph has captured: a replay reads them by address,
+# so they outlive their eviction from the cache above
+_CAPTURED: dict = {}
+
+
+def _matrix(in_len: int, out_len: int, x: torch.Tensor) -> torch.Tensor:
+    W = _resize_tensor(in_len, out_len, x.dtype, x.device)
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        _CAPTURED.setdefault(id(W), W)
+    return W
+
+
 def interpolate_linear_time(x: torch.Tensor, out_len: int) -> torch.Tensor:
     """Resize the last (time) axis of a (..., T) tensor to ``out_len``."""
-    W = _resize_tensor(x.shape[-1], out_len, x.dtype, x.device)
-    return x @ W.T
+    return x @ _matrix(x.shape[-1], out_len, x).T
 
 
 def interpolate_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Resize the (H, W) axes of a (..., H, W) tensor — separable, H first."""
-    Wh = _resize_tensor(x.shape[-2], out_hw[0], x.dtype, x.device)
-    Ww = _resize_tensor(x.shape[-1], out_hw[1], x.dtype, x.device)
+    Wh = _matrix(x.shape[-2], out_hw[0], x)
+    Ww = _matrix(x.shape[-1], out_hw[1], x)
     return (Wh @ x) @ Ww.T

@@ -12,7 +12,8 @@ host clock:
       (1, 82, 427, 64) output), ``reps`` calls enqueued back to back and one
       synchronize: the host's cost a call where it exceeds the kernel's
   serve_b1_ms       a B = 1 request of ``build_serving_fn`` (SDT-BP bf16, seeded
-      weights), synchronized; the median of ``reps``
+      weights), synchronized; the median of ``reps`` (one signature: from the
+      third call on, a CUDA-graph replay)
   dense_demo_4_27s_ms  ``voice2pose.demo_step`` of a 4.27 s clip (64 frames,
       the dense route), synchronized; the median of ``reps``
   stream_24s_ms     a 24 s clip through ``StreamingPoseSession`` over the B = 1

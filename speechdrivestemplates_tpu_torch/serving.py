@@ -10,6 +10,29 @@ input. ``ServingModule`` is that function as an ``nn.Module``, which
 ``utils/export.py`` exports at one (B, L) to a file that runs without this
 package's model code (``main --export``, ``run_artifact.py``).
 
+On a CUDA device ``fn`` replays a ``torch.cuda.CUDAGraph`` of the module's
+forward for each input signature (the audio's (B, L) and the code's shape,
+or no code) that repeats, as ``pipelines/graphed.py::ChunkRunner`` replays
+train steps; a call then costs the host one input copy, one graph launch and
+one output copy instead of ~330 launches. A signature's first call runs
+eagerly on the stream that captures next: it makes every lazily built
+constant (the mel kernel's tables, the resize matrices, the pose index
+tables), the kernels' one-time ``cudaFuncSetAttribute`` calls and cuDNN's
+plans, so that none happens under capture. Its second call captures the
+forward over static input buffers and replays it; every later call copies
+its inputs into those buffers, replays, and returns a copy of the static
+output (a caller may keep the outputs of earlier calls). The graphs of the
+``KEEP_GRAPHS`` most recently used signatures are kept, each with a private
+memory pool of one forward's intermediates; an evicted signature starts
+eagerly again. A capture that fails raises: there is no eager fallback on the
+card. On the CPU every call is eager. ``fn.routes`` counts the calls by route
+(``eager``, ``captured``, ``replayed``); each capture adds the kernels it
+recorded to ``kernels.CAPTURED`` and each replay adds them to
+``kernels.REPLAYED``, so ``kernels.executions()`` counts the kernels that ran
+on every route. A replayed call records the spans ``serve.forward`` and, inside
+it, ``serve.replay`` (``utils/trace.py``); the forward's sections record at a
+signature's eager call, and, flagged ``captured``, at its capture.
+
 Command line (one wav request; a reference-layout ``.pth`` checkpoint):
 
     python -m speechdrivestemplates_tpu_torch.serving ckpt.pth in.wav out.npz \
@@ -31,12 +54,15 @@ a code-less checkpoint (s2g) draws no code.
 from __future__ import annotations
 
 import argparse
+import collections
+from types import SimpleNamespace
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from . import kernels
 from .config import load_config
 from .datasets.speakers_stat import get_speaker_stat
 from .models import build_model
@@ -83,20 +109,91 @@ class ServingModule(nn.Module):
                                          self.scale.expand(B), self.hierarchical, self.num_kp)
 
 
-def build_serving_fn(cfg, state_dict: Dict[str, torch.Tensor],
-                     device="cuda") -> Tuple[Callable, bool]:
-    """``(fn, has_code)`` over the given generator weights on ``device``."""
-    device = resolve_device(device)
-    module = ServingModule(cfg, state_dict, device)
+KEEP_GRAPHS = 4  # signatures whose graphs are kept, least recently used evicted
+
+
+class ServingFn:
+    """``build_serving_fn``'s ``fn``: ``fn(audio[, code])`` through ``module``
+    on ``device``, eagerly or as a CUDA-graph replay (the module's docstring)."""
+
+    def __init__(self, module: ServingModule, device: torch.device):
+        self.module, self.device = module, device
+        self.routes: collections.Counter = collections.Counter()
+        self.graphs: "collections.OrderedDict[tuple, SimpleNamespace]" = collections.OrderedDict()
+        self.warm: set = set()  # signatures whose eager call has run
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     @torch.inference_mode()
-    def fn(audio, code=None):
-        audio = torch.as_tensor(audio, dtype=torch.float32, device=device)
+    def __call__(self, audio, code=None) -> torch.Tensor:
+        audio = torch.as_tensor(audio, dtype=torch.float32, device=self.device)
         if code is not None:
-            code = torch.as_tensor(code, dtype=torch.float32, device=device)
-        return module(audio, code)
+            code = torch.as_tensor(code, dtype=torch.float32, device=self.device)
+        if self.stream is None:
+            out = self.module(audio, code)
+            self.routes["eager"] += 1
+            return out
+        key = (tuple(audio.shape), None if code is None else tuple(code.shape))
+        g = self.graphs.get(key)
+        if g is not None:
+            self.graphs.move_to_end(key)
+            out = self._replay(g, audio, code)
+            self.routes["replayed"] += 1
+        elif key in self.warm:
+            out = self._replay(self._capture(key, audio, code), audio, code)
+            self.routes["captured"] += 1
+        else:
+            out = self._eager(audio, code)
+            self.warm.add(key)
+            self.routes["eager"] += 1
+        return out
 
-    return fn, module.has_code
+    def _eager(self, audio, code):
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            out = self.module(audio, code)
+        cur.wait_stream(self.stream)
+        for t in (audio, code):  # read on the capture stream
+            if t is not None:
+                t.record_stream(self.stream)
+        out.record_stream(cur)  # made on the capture stream, used on the caller's
+        return out
+
+    def _capture(self, key, audio, code) -> SimpleNamespace:
+        while len(self.graphs) >= KEEP_GRAPHS:
+            evicted, _ = self.graphs.popitem(last=False)
+            self.warm.discard(evicted)
+        static_audio = audio.new_empty(audio.shape)
+        static_code = None if code is None else code.new_empty(code.shape)
+        graph = torch.cuda.CUDAGraph()
+        before = collections.Counter(kernels.LAUNCHES)
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.graph(graph, stream=self.stream):
+            out = self.module(static_audio, static_code)
+        launches = collections.Counter(kernels.LAUNCHES) - before
+        kernels.CAPTURED.update(launches)
+        self.graphs[key] = g = SimpleNamespace(graph=graph, audio=static_audio,
+                                               code=static_code, out=out, launches=launches)
+        return g
+
+    def _replay(self, g: SimpleNamespace, audio, code) -> torch.Tensor:
+        with trace.span("serve.forward"):
+            g.audio.copy_(audio)
+            if code is not None:
+                g.code.copy_(code)
+            with trace.span("serve.replay"):
+                g.graph.replay()
+            kernels.REPLAYED.update(g.launches)
+            return g.out.clone()
+
+
+def build_serving_fn(cfg, state_dict: Dict[str, torch.Tensor],
+                     device="cuda") -> Tuple[Callable, bool]:
+    """``(fn, has_code)`` over the given generator weights on ``device``;
+    ``fn`` is a ``ServingFn``."""
+    device = resolve_device(device)
+    module = ServingModule(cfg, state_dict, device)
+    return ServingFn(module, device), module.has_code
 
 
 def main(argv=None) -> None:

@@ -10,7 +10,8 @@ finishes one stride (32 frames) of output.
 
 ``forward_fn`` maps (1, window_samples) float32 audio to (1, window_frames,
 2, K) poses; with the port, ``serving.build_serving_fn`` at the window's shape
-(64 frames, 68,266 samples), its code bound::
+(64 frames, 68,266 samples), its code bound (on the card every window has one
+signature, so from the second window on a call replays one CUDA graph)::
 
     fn, _ = build_serving_fn(cfg, state_dict)
     sess = StreamingPoseSession(lambda a: fn(a, code).float().cpu().numpy())

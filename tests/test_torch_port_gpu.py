@@ -6,6 +6,8 @@ card (and without JAX, which tests/conftest.py imports), run them with
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_gpu.py
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -651,3 +653,96 @@ def test_cuda_export_equals_build_serving_fn(cuda, tmp_path):
     want = fn(audio, code)
     rel = (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
     assert got.shape == (4, 64, 2, 121) and rel < 1e-3, rel
+
+
+def _serving_fn(preset: str, seed: int = 6):
+    """A seeded generator's bf16 serving function on the card."""
+    from speechdrivestemplates_tpu_torch import config
+    from speechdrivestemplates_tpu_torch.models import build_model
+    from speechdrivestemplates_tpu_torch.serving import build_serving_fn
+
+    cfg = getattr(config, preset)()
+    sd = build_model("SequenceGeneratorCNN", cfg, device="cpu",
+                     generator=torch.Generator().manual_seed(seed)).state_dict()
+    return build_serving_fn(cfg, sd, "cuda")
+
+
+def _serving_kernels(has_code: bool) -> dict:
+    return {"mel": 1, "conv1": 1, "stem": 1} if has_code else {"mel": 1}
+
+
+@pytest.mark.parametrize("preset", ["sdt_bp", "s2g"])
+def test_graphed_serving_equals_the_eager_forward(cuda, preset):
+    """At B = 4, a signature's eager call, its capture call and its replays
+    return the same poses, bit for bit, and a replay on other inputs returns
+    the module's eager poses of those; the poses a call returned stay as they
+    were after later calls, and a replay after the resize matrices' cache was
+    cleared still reads the matrices it captured; each call, on every route,
+    runs mel (and, with an IN encoder, conv1 and the stem) once."""
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.ops import resize
+
+    fn, has_code = _serving_fn(preset)
+    rng = np.random.RandomState(7)
+
+    def inputs():
+        return (_randn(rng, 4, 68267, scale=0.1), _randn(rng, 4, 32) if has_code else None)
+
+    a, b = inputs(), inputs()
+    kernels.reset_launch_counts()
+    outs, ran = [], []
+    for args in (a, a, a, b):
+        outs.append(fn(*args))
+        ran.append(dict(kernels.executions()))
+    kept = [o.clone() for o in outs]
+    # a replay reads the resize matrices by address: evicted from their cache and
+    # the freed memory refilled, they must still hold what the graph captured
+    resize._resize_tensor.cache_clear()
+    junk = [torch.full((n,), float("nan"), device="cuda") for n in range(1, 4096, 7)]
+    again = fn(*a)
+    torch.cuda.synchronize()
+    del junk
+    with torch.inference_mode():
+        want_b = fn.module(*b)
+    assert dict(fn.routes) == {"eager": 1, "captured": 1, "replayed": 3}
+    assert torch.equal(outs[1], outs[0]) and torch.equal(outs[2], outs[0])
+    assert torch.equal(outs[3], want_b) and not torch.equal(outs[3], outs[0])
+    assert torch.equal(again, outs[0])
+    assert all(torch.equal(o, k) for o, k in zip(outs, kept))
+    per_call = _serving_kernels(has_code)
+    assert ran == [{k: n * v for k, v in per_call.items()} for n in range(1, 5)]
+    assert dict(kernels.CAPTURED) == per_call  # one capture, four replays
+    assert dict(kernels.REPLAYED) == {k: 4 * v for k, v in per_call.items()}
+
+
+def test_graphed_serving_routes_by_signature(cuda):
+    """The route counts read eager, captured, replayed for one signature; a new
+    (B, L) starts eagerly; a fifth captured signature evicts the least recently
+    used graph, which starts eagerly again, while a replay keeps its graph."""
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.serving import KEEP_GRAPHS
+
+    fn, _ = _serving_fn("sdt_bp")
+    rng = np.random.RandomState(8)
+    req = {b: (_randn(rng, b, 16000, scale=0.1), _randn(rng, b, 32)) for b in range(1, 6)}
+    longer = (_randn(rng, 1, 20000, scale=0.1), req[1][1])
+    kernels.reset_launch_counts()
+
+    def route(args):
+        before = collections.Counter(fn.routes)
+        fn(*args)
+        return next(iter(fn.routes - before))
+
+    assert [route(req[1]) for _ in range(3)] == ["eager", "captured", "replayed"]
+    assert route(longer) == "eager"
+    for b in (2, 3, 4):
+        assert [route(req[b]), route(req[b])] == ["eager", "captured"]
+    assert KEEP_GRAPHS == 4 and list(fn.graphs) == [((b, 16000), (b, 32)) for b in (1, 2, 3, 4)]
+    assert route(req[2]) == "replayed"  # 2 is now the most recently used
+    assert [route(req[5]), route(req[5])] == ["eager", "captured"]  # evicts 1
+    assert list(fn.graphs) == [((b, 16000), (b, 32)) for b in (3, 4, 2, 5)]
+    assert [route(req[1]), route(req[1])] == ["eager", "captured"]  # evicts 3
+    assert [route(req[2]), route(req[3])] == ["replayed", "eager"]
+    torch.cuda.synchronize()
+    calls = sum(fn.routes.values())
+    assert dict(kernels.executions()) == {"mel": calls, "conv1": calls, "stem": calls}

@@ -250,17 +250,24 @@ def test_one_rank_defaults_spawn_nothing(monkeypatch):
     assert spawned == [2]
 
 
-def test_cpu_serving_launches_no_kernel(rng):
-    from speechdrivestemplates_tpu_torch import kernels
+@pytest.fixture(scope="module")
+def cpu_serving():
+    """SDT-BP fp32's serving function on the CPU, built once for the module."""
     from speechdrivestemplates_tpu_torch.config import sdt_bp
     from speechdrivestemplates_tpu_torch.models import build_model
-    from speechdrivestemplates_tpu_torch.ops.mel import mel_spectrogram_kernel
     from speechdrivestemplates_tpu_torch.serving import build_serving_fn
 
     cfg = sdt_bp(precision="fp32")
     sd = build_model("SequenceGeneratorCNN", cfg, device="cpu",
                      generator=torch.Generator().manual_seed(1)).state_dict()
-    fn, has_code = build_serving_fn(cfg, sd, device="cpu")
+    return build_serving_fn(cfg, sd, device="cpu")
+
+
+def test_cpu_serving_launches_no_kernel(rng, cpu_serving):
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.ops.mel import mel_spectrogram_kernel
+
+    fn, has_code = cpu_serving
     kernels.reset_launch_counts()
     out = fn(rng.randn(2, 16000).astype(np.float32) * 0.1,
              rng.randn(2, 32).astype(np.float32))
@@ -269,6 +276,24 @@ def test_cpu_serving_launches_no_kernel(rng):
     with pytest.raises(ValueError, match="CUDA"):
         mel_spectrogram_kernel(torch.zeros(1, 16000))
     assert sum(kernels.LAUNCHES.values()) == 0
+
+
+def test_cpu_serving_makes_no_graph(rng, cpu_serving):
+    """On the CPU a repeated signature stays eager: no graph, no capture
+    stream, every call counted ``eager``, and the same inputs give the same
+    poses."""
+    from speechdrivestemplates_tpu_torch import kernels
+
+    fn, _ = cpu_serving
+    fn.routes.clear()
+    kernels.reset_launch_counts()
+    audio = rng.randn(1, 4000).astype(np.float32) * 0.1
+    code = rng.randn(1, 32).astype(np.float32)
+    outs = [fn(audio, code) for _ in range(3)]
+    assert dict(fn.routes) == {"eager": 3}
+    assert fn.stream is None and not fn.graphs
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert not (kernels.LAUNCHES or kernels.CAPTURED or kernels.REPLAYED)
 
 
 def test_seeded_init_is_reproducible():
