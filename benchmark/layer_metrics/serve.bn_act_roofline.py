@@ -1,0 +1,22 @@
+"""sdt::bn_act (csrc/bn_act.cu): the least time of one call's BN layers at
+the cell's shape (counts/bn_act.py) over their device time per call, in %.
+Its rows are the kernel's own, by name; a program without the kernel has
+none, and gives nothing."""
+
+import re
+
+from benchmark import counts
+from benchmark.counts import bn_act, mel
+
+KERNEL = re.compile(r"\bbn_act_kernel\b")
+
+
+def read(ctx):
+    seconds = sum(s for name, (s, _) in ctx["rows"].items() if KERNEL.search(name))
+    calls = ctx["work"].get("calls", 0)
+    if seconds <= 0 or not calls:
+        return None
+    model = ctx["config"]["model"]
+    flops, nbytes = bn_act.count(ctx["work"]["batch"], mel.frames(ctx["work"]["samples"]),
+                                 model["num_frames"], 2 if model["precision"] == "bf16" else 4)
+    return 100.0 * counts.bound_s(flops, nbytes) / (seconds / calls)

@@ -79,9 +79,14 @@ Phases, each of which must pass or the script exits non-zero:
  16. s2g      s2g-GAN (BN generator, no code, the LSGAN discriminator, global poses),
               bf16, full width: (a) three requests (B = 1, 16, 128) through
               build_serving_fn with BN statistics moved by three train-mode forwards:
-              the mel counter reads 1, 2, 3, conv1's and the stem's stay at 0 (the BN
-              encoder takes no InstanceNorm kernel); B = 128 held to an fp32 plain
-              forward (rel L2 < 0.05, corr > 0.999) and timed; (b) training at B = 32
+              the mel counter reads 1, 2, 3, bn_act's 24, 48, 72 (one launch a BN
+              layer), conv1's and the stem's stay at 0 (the BN encoder takes no
+              InstanceNorm kernel); B = 128 held to an fp32 plain forward (rel L2 <
+              0.05, corr > 0.999) and timed; the bn_act kernel at s2g's 24 layer shapes
+              at B = 128 in bf16 against the plain path (BN in eval mode, lrelu, cast:
+              within 1 ulp, the share of elements bit for bit reported), its ms over the
+              24 layers beside the plain path's, F.batch_norm + F.leaky_relu's and the
+              bound; (b) training at B = 32
               on phase 10's speaker: one step launches mel once, conv1 and the stem
               never; against an fp32 all-plain step at the same weights G_reg_loss and
               D_pose_gan_loss within 2%, D's gradient at cosine >= 0.99 and G's at
@@ -127,8 +132,9 @@ Phases, each of which must pass or the script exits non-zero:
               (c) `run_artifact.py` in a subprocess with the B = 1 artifact on phase 8's
               wav: the serving command line's npz of phase 11 (rel L2 < 1e-3, bit
               equality reported); (d) `run_artifact.py --bench 20` at B = 128; (e) phase
-              16's s2g checkpoint exported here at B = 16: its graph calls sdt.mel alone,
-              one call launches mel once, poses held to build_serving_fn's; (f) export
+              16's s2g checkpoint exported here at B = 16: its graph calls sdt.mel once
+              and sdt.bn_act 24 times, one call launches mel once and bn_act 24 times,
+              poses held to build_serving_fn's (rel L2 < 1e-3, bit equality reported); (f) export
               and load seconds, artifact bytes; (g) a streaming session off a B = 1
               artifact at the window's length (68,266 samples) launches each kernel once a
               window and is held to the windowed demo of the 24 s clip at phase 17's gate
@@ -198,6 +204,8 @@ artifact; not its reference, warm-up or timed calls), phase 19's demo,
 test and SDT-BP training and phase 20's NCCL run, ranks and demos, every
 rank's counted in its own process; conv1's and the stem's over the serving
 requests, the eval batches, the demo routes, phase 18, phase 19 and phase
+20's evaluations; bn_act's over phase 13's eval batches (the pose encoder's BN
+in eval mode), phase 16's requests, phase 18's s2g artifact call and phase
 20's evaluations), the card's name and power limit, a JSON line with the
 train step's time, one with phases 12-14's numbers, one with phase 15's, one
 with phase 16's, one with phase 17's, one with phase 18's, one with phase
@@ -1080,6 +1088,10 @@ def main() -> None:
         return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
 
     report = {}
+    # eval-mode BN + lrelu + cast: launched from phase 13 on, checked and timed in phase 16
+    report["bn_act"] = dict(
+        name="bn_act", route="cuda", source="speechdrivestemplates_tpu_torch/csrc/bn_act.cu",
+        replaces="none: XLA fuses eval BN, lrelu and the cast in the JAX package", launches=0)
 
     # ---- 3. mel kernel -----------------------------------------------------------
     def check_mel(audio, what):
@@ -1705,8 +1717,8 @@ def main() -> None:
           and ragged_q99 < 0.05 and e16.mean().item() < 0.02,
           f"stem kernels bf16 vs fp32 plain at (3, 80, 427): p99 {ragged_q99}")
     eval_ms = cuda_ms(lambda b: V2P.eval_step(state16, b), [(to_dev(ebatches[0]),)], 10)
-    for name in ("mel", "conv1", "stem"):
-        report[name]["launches"] += eval_launches[name]
+    for name in ("mel", "conv1", "stem", "bn_act"):
+        report[name]["launches"] += eval_launches.get(name, 0)
     chain_line = {"chain": {"card": card, "pose2pose_step_ms": p_step_ms,
                             "pose2pose_reg_loss_first4": p_first4,
                             "pose2pose_reg_loss_last4": p_last4,
@@ -1957,8 +1969,8 @@ def main() -> None:
     # ---- 16. s2g-GAN: serving, training, the graphed loop, the command line ----------
     from speechdrivestemplates_tpu_torch.config import s2g
 
-    def in_kernels(counts):
-        return {n: counts.get(n, 0) for n in ("conv1", "stem")}
+    def in_kernels(counts):  # none runs in train mode
+        return {n: counts.get(n, 0) for n in ("conv1", "stem", "bn_act")}
 
     # (a) serving: seeded weights, BN statistics moved by a few train-mode forwards
     scfg = s2g(precision="bf16")
@@ -1982,10 +1994,12 @@ def main() -> None:
         check(poses.shape == (b, 64, 2, 121) and bool(torch.isfinite(poses).all()),
               f"s2g poses at B={b}: {tuple(poses.shape)}")
         seen.append(dict(kernels.LAUNCHES))
-    s_growth = {n: [s.get(n, 0) for s in seen] for n in ("mel", "conv1", "stem")}
-    check(s_growth == {"mel": [1, 2, 3], "conv1": [0, 0, 0], "stem": [0, 0, 0]},
+    s_growth = {n: [s.get(n, 0) for s in seen] for n in ("mel", "conv1", "stem", "bn_act")}
+    check(s_growth == {"mel": [1, 2, 3], "conv1": [0, 0, 0], "stem": [0, 0, 0],
+                       "bn_act": [24, 48, 72]},
           f"s2g serving launches per request: {s_growth}")
     report["mel"]["launches"] += 3
+    report["bn_act"]["launches"] += 72
     audio = requests[-1]
     model16 = build_model(scfg.VOICE2POSE.GENERATOR.NAME, scfg, device="cuda")
     model16.load_state_dict(sd)
@@ -2003,7 +2017,57 @@ def main() -> None:
     print(f"[s2g-serve] bf16 B=1,16,128 ok; launches after each request {s_growth}; B=128 vs "
           f"fp32 plain: rel L2 {s_rel:.4e}, corr {s_corr:.6f}; forward {s_fwd_ms:.4f} ms = "
           f"{128 * 64 / (s_fwd_ms / 1e3):.1f} pose-frames/s", flush=True)
-    del model16, model32, out16, out32, requests, fn
+    del model32, out16, out32, requests, fn
+
+    # the bn_act kernel at s2g's 24 BN layers (B = 128, bf16, the moved statistics) on
+    # activations about each channel's running mean, against the plain path; not counted
+    from speechdrivestemplates_tpu_torch.models.blocks import ConvNormRelu
+    from speechdrivestemplates_tpu_torch.ops import bn_act as BA
+
+    bns = [m.norm for m in model16.modules() if isinstance(m, ConvNormRelu) and m.norm is not None]
+    bn_shapes = [(64, 80, 427), (64, 40, 213), (128, 40, 213), (128, 20, 106), (256, 20, 106),
+                 (256, 10, 53), (256, 10, 53), (256, 5, 51)] + [
+        (256, t) for t in (64, 64, 32, 16, 8, 4, 2, 4, 8, 16, 32, 64, 64, 64, 64, 64)]
+    check(len(bns) == len(bn_shapes) == 24
+          and all(bn.running_mean.numel() == sh[0] for bn, sh in zip(bns, bn_shapes)),
+          f"s2g's BN layers: {[bn.running_mean.numel() for bn in bns]}")
+    g16 = torch.Generator(device=dev).manual_seed(16)
+    acts = []
+    for bn, sh in zip(bns, bn_shapes):
+        per = (-1,) + (1,) * (len(sh) - 1)
+        acts.append((torch.randn((128, *sh), generator=g16, device=dev)
+                     * bn.running_var.sqrt().view(per) + bn.running_mean.view(per)).to(bf))
+    bn_ulps, bn_exact, bn_err = 0, 0, 0.0
+    with torch.no_grad():
+        for bn, x in zip(bns, acts):
+            k, p = BA.bn_act_kernel(x, bn, 0.2), BA.bn_act_plain(x, bn, 0.2)
+            d = BA.ulp_distance(k, p)
+            bn_ulps, bn_exact = max(bn_ulps, int(d.max())), bn_exact + int((d == 0).sum())
+            bn_err = max(bn_err, (k.float() - p.float()).abs().max().item())
+            del k, p, d
+    n_bn = sum(x.numel() for x in acts)
+    check(bn_ulps <= 1, f"bn_act vs the plain path at s2g's 24 layers: {bn_ulps} ulps")
+
+    def bn_sweep(f):
+        with torch.no_grad():
+            for bn, x in zip(bns, acts):
+                f(x, bn)
+
+    bn_b, bn_by = bound_ms(4.0 * n_bn + 16 * sum(sh[0] for sh in bn_shapes), 2.0 * n_bn, "bf16")
+    report["bn_act"].update(
+        max_abs_err=bn_err, ulps=bn_ulps, bit_equal_share=bn_exact / n_bn,
+        ms=cuda_ms(lambda: bn_sweep(lambda x, bn: BA.bn_act_kernel(x, bn, 0.2)), [()], 10),
+        plain_ms=cuda_ms(lambda: bn_sweep(lambda x, bn: BA.bn_act_plain(x, bn, 0.2)), [()], 3),
+        bound_ms=bn_b, bound_by=bn_by,
+        library_ms=cuda_ms(lambda: bn_sweep(lambda x, bn: torch.nn.functional.leaky_relu(
+            torch.nn.functional.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                                           bn.bias, False, 0.0, 1e-5), 0.2)), [()], 10))
+    print(f"[s2g-bn_act] s2g's 24 BN layers at B=128, bf16 ({n_bn} elements): kernel vs the "
+          f"plain path within {bn_ulps} ulp, {bn_exact / n_bn:.6%} bit for bit, max abs err "
+          f"{bn_err:.3e}; kernel {report['bn_act']['ms']:.4f} ms, plain "
+          f"{report['bn_act']['plain_ms']:.4f} ms, F.batch_norm + F.leaky_relu "
+          f"{report['bn_act']['library_ms']:.4f} ms, bound {bn_b:.4f} ms ({bn_by})", flush=True)
+    del model16, acts, bns
 
     # (b) training, B = 32, on phase 10's speaker
     sopts = opts + ["SYS.NUM_WORKERS", "8"]
@@ -2635,8 +2699,8 @@ def main() -> None:
     export_s["s2g_b16_in_process"] = time.perf_counter() - t0
     art_bytes["s2g_b16"] = s_meta["bytes"]
     graph = graph_ops(torch.export.load(s_art_path))
-    check(s_meta["ops"] == graph == {"sdt.mel": 1} and s_meta["code_dim"] is None,
-          f"s2g export: sidecar {s_meta}, graph {graph}")
+    check(s_meta["ops"] == graph == {"sdt.bn_act": 24, "sdt.mel": 1}
+          and s_meta["code_dim"] is None, f"s2g export: sidecar {s_meta}, graph {graph}")
     t0 = time.perf_counter()
     s_art = load_serving_fn(s_art_path)
     load_s["s2g_b16"] = time.perf_counter() - t0
@@ -2644,7 +2708,7 @@ def main() -> None:
                                device="cuda")
     a16 = dev_randn(16, L, scale=0.1)
     got, n = main_path(lambda: s_art(a16))
-    check(n == {"mel": 1}, f"one call of the s2g artifact launched {n}")
+    check(n == {"mel": 1, "bn_act": 24}, f"one call of the s2g artifact launched {n}")
     ref = s_fn(a16)
     s_art_rel, s_art_equal = rel_l2(got, ref), bool(torch.equal(got, ref))
     check(got.shape == (16, 64, 2, 121) and s_art_rel < 1e-3,
@@ -2912,7 +2976,7 @@ def main() -> None:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)
     print(json.dumps({"kernels": [{k: report[n][k] for k in keys}
-                                  for n in ("mel", "conv1", "stem", "shift_probe")]}))
+                                  for n in ("mel", "conv1", "stem", "shift_probe", "bn_act")]}))
     print(json.dumps(train_line))
     print(json.dumps(chain_line))
     print(json.dumps({"graphed": graph_line}))

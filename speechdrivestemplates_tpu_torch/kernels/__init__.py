@@ -8,11 +8,11 @@ when its source is newer. ``build_all()`` compiles every source at once, one
 ``nvcc`` process each.
 
 Importing this package registers the kernels as ``torch.library`` custom
-ops, ``torch.ops.sdt.{mel, conv1_in, stem, shift_taps}`` (``kernels/ops.py``);
-the ``ctypes`` calls live in those ops' CUDA implementations alone. The
-wrappers in ``ops/`` check their inputs and call the ops, and an exported
-serving graph (``utils/export.py``) calls them too, so a process that loads
-one imports this package first.
+ops, ``torch.ops.sdt.{mel, conv1_in, stem, shift_taps, bn_act}``
+(``kernels/ops.py``); the ``ctypes`` calls live in those ops' CUDA
+implementations alone. The wrappers in ``ops/`` check their inputs and call
+the ops, and an exported serving graph (``utils/export.py``) calls them too,
+so a process that loads one imports this package first.
 
 ``LAUNCHES`` counts, per kernel, the calls in which an op's implementation
 launched it (one right where it launches, nowhere else; a fake call, as
@@ -51,6 +51,7 @@ SIGNATURES = {
     "stem": {"sdt_stem_forward": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _F, _P]},
     "shift_probe": {"sdt_shift_taps_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "bn_act": {"sdt_bn_act_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]},
 }
 
 # what the wrappers in ops/ take: CUDA tensors, and meta tensors, whose shapes

@@ -1,9 +1,11 @@
-"""The four kernels as ``torch.library`` custom ops, namespace ``sdt``.
+"""The five kernels as ``torch.library`` custom ops, namespace ``sdt``.
 
     sdt::mel(audio, cs_hi, cs_lo, fb_hi, fb_lo)  (B, L) f32 -> (B, 80, L//160+1) f32
     sdt::conv1_in(mel, w1, slope, dtype)         (B, 80, W1) f32 -> (B, 82, W1, 64) dtype
     sdt::stem(y1, w2t, w3t, slope)               (B, 82, W1, 64) -> (B, 40, W2, 128), y1's dtype
     sdt::shift_taps(x, w, m_out, subtile)        (N, M, C) bf16 -> (N, m_out, C) bf16
+    sdt::bn_act(x, running_mean, running_var, weight, bias, slope)
+                                                 (B, C, ...) dtype -> the same shape, dtype
 
 Each op is a schema on one ``torch.library.Library`` with two
 registrations (``torch.library.custom_op`` would add a Python autograd and
@@ -14,15 +16,18 @@ through ``ctypes`` on the current stream and counts the launch in
 shape and dtype and launches nothing: ``torch.export`` traces the ops with
 fake tensors, which have no data pointer, and the exported graph calls them.
 Every operand a kernel reads is an op input (mel's split DFT and filterbank
-tables, the stem's weights as (kh, kw, C_out, C_in)), so that an exported
-graph carries them as constants. The wrappers in ``ops/`` check their inputs
-and call ``torch.ops.sdt.*``; the implementations take the dense layout the
-kernels read (``contiguous()``, free where the wrapper made it so, and a copy
-where a graph hands them another). The ops have no autograd formula: the
-wrappers refuse an input that requires grad first.
+tables, the stem's weights as (kh, kw, C_out, C_in), a BN layer's four
+vectors), so that an exported graph carries them as constants. The wrappers
+in ``ops/`` check their inputs and call ``torch.ops.sdt.*``; the
+implementations take the dense layout the kernels read (``contiguous()``,
+free where the wrapper made it so, and a copy where a graph hands them
+another). The ops have no autograd formula: the wrappers refuse an input
+that requires grad first.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -45,6 +50,8 @@ LIB.define("mel(Tensor audio, Tensor cs_hi, Tensor cs_lo, Tensor fb_hi, Tensor f
 LIB.define("conv1_in(Tensor mel, Tensor w1, float slope, ScalarType dtype) -> Tensor")
 LIB.define("stem(Tensor y1, Tensor w2t, Tensor w3t, float slope) -> Tensor")
 LIB.define("shift_taps(Tensor x, Tensor w, int m_out, bool subtile) -> Tensor")
+LIB.define("bn_act(Tensor x, Tensor running_mean, Tensor running_var, Tensor weight, "
+           "Tensor bias, float slope) -> Tensor")
 
 
 @torch.library.impl("sdt::mel", "CUDA", lib=LIB)
@@ -137,3 +144,23 @@ def shift_taps(x, w, m_out, subtile):
 def _(x, w, m_out, subtile):
     N, _, C = x.shape
     return x.new_empty((N, m_out, C), dtype=torch.bfloat16)
+
+
+@torch.library.impl("sdt::bn_act", "CUDA", lib=LIB)
+def bn_act(x, running_mean, running_var, weight, bias, slope):
+    x = x.contiguous()
+    vecs = [t.contiguous() for t in (running_mean, running_var, weight, bias)]
+    B, C = x.shape[:2]
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    err = library("bn_act").sdt_bn_act_forward(
+        x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in vecs),
+        int(x.dtype == torch.bfloat16), B, C, math.prod(x.shape[2:]), float(slope),
+        current_stream(x.device))
+    LAUNCHES["bn_act"] += 1
+    check(err, "sdt_bn_act_forward")
+    return out
+
+
+@torch.library.register_fake("sdt::bn_act", lib=LIB)
+def _(x, running_mean, running_var, weight, bias, slope):
+    return x.new_empty(x.shape)

@@ -28,7 +28,8 @@ class PoseSeqEncoder(nn.Module):
     """(B, T, 2, K) poses -> (mu, logvar), each (B, code_dim) in the compute dtype.
 
     Seven 1-d ConvNormRelu: two k3 s1 at 256 channels, four k4 s2 at 256,
-    and a last k4 s2 to 2 * code_dim (T = 64 -> 2 positions)."""
+    and a last k4 s2 to 2 * code_dim (T = 64 -> 2 positions). ``plain`` keeps
+    BN's plain layers on the card in eval mode (a reference)."""
 
     def __init__(self, num_landmarks: int = 121, code_dim: int = 32,
                  norm: str = "BN", leaky: bool = True,
@@ -54,10 +55,13 @@ class PoseSeqEncoder(nn.Module):
         return cls(cfg.DATASET.NUM_LANDMARKS, ae.CODE_DIM, ae.NORM, ae.LEAKY_RELU, dtype,
                    generator)
 
-    def forward(self, poses: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, poses: torch.Tensor,
+                plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
         B, T = poses.shape[:2]
         # (B, T, 2, K) -> (B, T, 2K) -> (B, 2K, T): channel = coord * K + k
-        x = self.blocks(poses.reshape(B, T, -1).transpose(1, 2))
+        x = poses.reshape(B, T, -1).transpose(1, 2)
+        for layer in self.blocks:
+            x = layer(x, plain)
         x = x[:, :, 0]  # nearest-interpolate to length 1 == the first position
         return x[:, 0::2], x[:, 1::2]
 

@@ -25,7 +25,8 @@ class PoseSequenceDiscriminator(nn.Module):
     BN ConvNormRelu 1D layers (2K -> 256 k4 s2, 256 -> 512 k4 s2, 512 -> 1024
     k3 s1), leaky with ``leaky``, and a Conv1d 1024 -> 1, k3 p1, with bias,
     initialized as flax ``nn.Conv`` is. Every train-mode forward moves the BN
-    running statistics, as torch BatchNorm does."""
+    running statistics, as torch BatchNorm does. ``plain`` keeps BN's plain
+    layers on the card in eval mode (a reference)."""
 
     def __init__(self, num_keypoints: int = 121, leaky: bool = False,
                  dtype: torch.dtype = torch.float32,
@@ -50,11 +51,11 @@ class PoseSequenceDiscriminator(nn.Module):
         k = len(dcfg.WHITE_LIST) if dcfg.WHITE_LIST is not None else cfg.DATASET.NUM_LANDMARKS
         return cls(k, dcfg.LEAKY_RELU, dtype, generator)
 
-    def forward(self, poses: torch.Tensor) -> torch.Tensor:
+    def forward(self, poses: torch.Tensor, plain: bool = False) -> torch.Tensor:
         B, T = poses.shape[:2]
         x = poses.reshape(B, T, -1).transpose(1, 2)  # (B, 2K, T)
         for layer in self.seq[:3]:
-            x = layer(x)
+            x = layer(x, plain)
         out = self.seq[3]
         x = F.conv1d(x, out.weight.to(self.dtype), out.bias.to(self.dtype),
                      padding=out.padding)

@@ -37,8 +37,9 @@ class AudioEncoder(nn.Module):
     autograd) in train mode, on the CPU, or when ``plain`` is set. The kernels
     have no backward, as the JAX package's Pallas stem has none: it runs only
     at inference there too. A BN encoder (s2g) runs its eight layers in order,
-    in every mode and on every device: the kernels compute InstanceNorm, and
-    the JAX package gives its Pallas stem IN encoders only.
+    in every mode and on every device: the stem kernels compute InstanceNorm,
+    and the JAX package gives its Pallas stem IN encoders only. Each BN layer
+    applies its norm by the bn_act kernel on the same terms (``ConvNormRelu``).
     """
 
     def __init__(self, norm: str = "IN", leaky: bool = True,
@@ -74,7 +75,7 @@ class AudioEncoder(nn.Module):
             x, layers = x.permute(0, 3, 1, 2), layers[3:]
         with trace.span("encoder.layers"):
             for layer in layers:
-                x = layer(x)
+                x = layer(x, plain)
             # (B, 256, H', W') -> bilinear to (1, num_frames), no antialiasing
             return interpolate_bilinear(x, (1, num_frames))[:, :, 0, :]
 
@@ -95,23 +96,23 @@ class UNet1D(nn.Module):
         self.e2, self.e3, self.e4, self.e5, self.e6 = (cnr(256, True) for _ in range(5))
         self.d5, self.d4, self.d3, self.d2, self.d1 = (cnr(256) for _ in range(5))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        e0 = self.e0(x)
-        e1 = self.e1(e0)
-        e2 = self.e2(e1)
-        e3 = self.e3(e2)
-        e4 = self.e4(e3)
-        e5 = self.e5(e4)
-        e6 = self.e6(e5)
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        e0 = self.e0(x, plain)
+        e1 = self.e1(e0, plain)
+        e2 = self.e2(e1, plain)
+        e3 = self.e3(e2, plain)
+        e4 = self.e4(e3, plain)
+        e5 = self.e5(e4, plain)
+        e6 = self.e6(e5, plain)
 
         def up(a, b):
             return interpolate_linear_time(a, b.shape[-1]) + b
 
-        d5 = self.d5(up(e6, e5))
-        d4 = self.d4(up(d5, e4))
-        d3 = self.d3(up(d4, e3))
-        d2 = self.d2(up(d3, e2))
-        return self.d1(up(d2, e1))
+        d5 = self.d5(up(e6, e5), plain)
+        d4 = self.d4(up(d5, e4), plain)
+        d3 = self.d3(up(d4, e3), plain)
+        d2 = self.d2(up(d3, e2), plain)
+        return self.d1(up(d2, e1), plain)
 
 
 class SequenceGeneratorCNN(nn.Module):
@@ -145,8 +146,9 @@ class SequenceGeneratorCNN(nn.Module):
                 plain: bool = False) -> torch.Tensor:
         """mel (B, 80, T_mel); code (B, code_dim) or (B, code_dim, T), None
         for a code-less generator -> normalized poses (B, num_frames, 2, K) in
-        the compute dtype. ``plain`` runs an IN stem's plain version even on
-        the card in eval mode (a reference); train mode always does."""
+        the compute dtype. ``plain`` runs the plain layers even on the card in
+        eval mode, an IN stem's and every BN layer's (a reference); train mode
+        always does."""
         x = self.audio_encoder(mel, num_frames, plain)  # (B, 256, T)
         with trace.span("unet"):
             if self.code_dim is not None:
@@ -155,10 +157,10 @@ class SequenceGeneratorCNN(nn.Module):
                 if code.ndim == 2:
                     code = code[:, :, None].expand(-1, -1, x.shape[-1])
                 x = torch.cat([x, code.to(x.dtype)], dim=1)
-            x = self.unet(x)
+            x = self.unet(x, plain)
         with trace.span("decoder"):
             for layer in self.decoder[:4]:
-                x = layer(x)
+                x = layer(x, plain)
             out = self.decoder[4]
             x = F.conv1d(x, out.weight.to(self.dtype), out.bias.to(self.dtype))
             # (B, 2K, T) -> (B, T, 2K) -> (B, T, 2, K): channel = coord * K + k

@@ -551,7 +551,7 @@ def train_step(state: Voice2PoseTrainState, batch: Dict[str, object],
 
 def condition_code(state: Voice2PoseTrainState, batch: Dict[str, torch.Tensor],
                    interpolation_coeff: Optional[float] = None,
-                   sharded: bool = False) -> Optional[torch.Tensor]:
+                   sharded: bool = False, plain: bool = False) -> Optional[torch.Tensor]:
     """The eval template codes of a device batch (the eval modes of the JAX
     ``_condition_code``; a train step takes the bank rows at ``clip_index``);
     None for a code-less generator. The first mode set of:
@@ -563,7 +563,8 @@ def condition_code(state: Voice2PoseTrainState, batch: Dict[str, torch.Tensor],
     ``state.rng``; for a ``sharded`` batch (a rank's shard of the global
     batch) they are drawn for the global batch on every rank, and each takes
     its rows (``parallel.dist.draw_rows``), so the ranks' generators stay in
-    step and the codes are those of a one-process run."""
+    step and the codes are those of a one-process run. ``plain`` runs the pose
+    encoder's plain layers even on the card (a reference)."""
     if state.clips_code is None:
         return None
     cfg, bank = state.cfg, state.clips_code.detach()
@@ -580,7 +581,7 @@ def condition_code(state: Voice2PoseTrainState, batch: Dict[str, torch.Tensor],
         if not cfg.DATASET.HIERARCHICAL_POSE:
             gt = p2g_renorm(batch, gt, cfg)
         with eval_mode(state.pose_encoder):
-            return state.pose_encoder(gt)[0].float()
+            return state.pose_encoder(gt, plain)[0].float()
     if cfg.DEMO.CODE_INDEX is not None:
         return demo_code(state, interpolation_coeff)[None].expand(B, *bank.shape[1:])
     idx = rows(lambda n: torch.randint(0, bank.shape[0], (n,), generator=state.rng,
@@ -600,8 +601,8 @@ def eval_step(state: Voice2PoseTrainState, batch: Dict[str, object],
     none), the pixel-space poses, the codes where the generator takes them,
     and the pose encoder's mu and logvar of prediction and ground truth.
     ``fixed_code`` replaces ``condition_code``'s, which takes
-    ``interpolation_coeff``; ``plain`` takes the plain mel and stem even on
-    the card (a reference). ``num_frames`` (default DATASET.NUM_FRAMES) is the
+    ``interpolation_coeff``; ``plain`` takes the plain mel, stem and BN
+    layers even on the card (a reference). ``num_frames`` (default DATASET.NUM_FRAMES) is the
     output's length. ``sharded``: the batch is this rank's shard of a global
     eval batch (``condition_code``); the losses and metrics are the global
     batch's under a process group in any case."""
@@ -620,7 +621,7 @@ def eval_step(state: Voice2PoseTrainState, batch: Dict[str, object],
     with eval_mode(state.generator, state.pose_encoder, D):
         mel = (mel_spectrogram_plain if plain else mel_spectrogram)(b["audio"])
         code = (fixed_code.to(dev) if fixed_code is not None
-                else condition_code(state, b, interpolation_coeff, sharded))
+                else condition_code(state, b, interpolation_coeff, sharded, plain))
         pred = state.generator(mel, num_frames, code, plain=plain)
         results = {"poses_pred_batch": final(pred)}
         if code is not None:
@@ -628,14 +629,14 @@ def eval_step(state: Voice2PoseTrainState, batch: Dict[str, object],
         losses: Dict[str, torch.Tensor] = {}
         if "poses" in b:
             gt = b["poses"]
-            score_fake = None if D is None else D(disc_input(pred, cfg))
+            score_fake = None if D is None else D(disc_input(pred, cfg), plain)
             _, losses = generator_losses(pred, gt, code, cfg, score_fake)
             if D is not None:
-                losses.update(disc_losses(D(disc_input(gt, cfg)), score_fake, cfg)[1])
+                losses.update(disc_losses(D(disc_input(gt, cfg), plain), score_fake, cfg)[1])
             if state.pose_encoder is not None:
                 enc_pred, enc_gt = _encoder_inputs(b, pred, gt, cfg)
-                mu_p, lv_p = state.pose_encoder(enc_pred)
-                mu_g, lv_g = state.pose_encoder(enc_gt)
+                mu_p, lv_p = state.pose_encoder(enc_pred, plain)
+                mu_g, lv_g = state.pose_encoder(enc_gt, plain)
                 results.update(mu_pred=mu_p, logvar_pred=lv_p, mu_gt=mu_g, logvar_gt=lv_g)
             results["poses_gt_batch"] = final(gt)
             losses.update(step_metrics(results["poses_pred_batch"], results["poses_gt_batch"]))

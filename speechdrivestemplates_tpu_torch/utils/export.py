@@ -15,7 +15,8 @@ a profiler session: the graph holds none of them.
 
 The artifact holds the route of the device it was exported on. Exported on
 the card, its graph calls the kernels as ``torch.ops.sdt.*`` (the export
-raises unless it calls each kernel of the model's route once); exported on
+raises unless it calls each kernel of the model's route as often as
+``route_ops`` says: once, and ``bn_act`` once a BN layer); exported on
 the CPU, it holds the plain route and no kernel op. It loads on that device
 only (``load_serving_fn``), in a process that has registered the ``sdt`` ops
 by importing ``kernels``, as this module does: ``torch.export.load`` refuses
@@ -58,13 +59,20 @@ def drop_metadata_asserts(program: torch.export.ExportedProgram) -> int:
     return len(asserts)
 
 
-def route_ops(cfg) -> Dict[str, int]:
-    """The kernel ops one call of the card's serving route makes: the mel
-    kernel, and the conv1 and stem kernels of an InstanceNorm audio encoder
-    (a BatchNorm encoder, s2g's, takes no stem kernel)."""
-    if cfg.VOICE2POSE.GENERATOR.NORM == "BN":
-        return {"sdt.mel": 1}
-    return {"sdt.conv1_in": 1, "sdt.mel": 1, "sdt.stem": 1}
+def route_ops(model: torch.nn.Module) -> Dict[str, int]:
+    """The kernel ops one call of the card's serving route through the
+    generator ``model`` makes: the mel kernel; the conv1 and stem kernels of
+    an InstanceNorm audio encoder; bn_act once for each BatchNorm layer (a
+    ``ConvNormRelu`` with a norm module: s2g's 24)."""
+    from ..models.blocks import ConvNormRelu
+
+    ops = {"sdt.mel": 1}
+    if model.audio_encoder.norm == "IN":
+        ops.update({"sdt.conv1_in": 1, "sdt.stem": 1})
+    bn = sum(isinstance(m, ConvNormRelu) and m.norm is not None for m in model.modules())
+    if bn:
+        ops["sdt.bn_act"] = bn
+    return ops
 
 
 def export_serving_fn(cfg, checkpoint: str, out_path: str, batch_size: int = 1,
@@ -93,7 +101,7 @@ def export_serving_fn(cfg, checkpoint: str, out_path: str, batch_size: int = 1,
         program = torch.export.export(module, args)
     drop_metadata_asserts(program)
     ops = graph_ops(program)
-    want = route_ops(cfg) if device.type == "cuda" else {}
+    want = route_ops(module.model) if device.type == "cuda" else {}
     if ops != want:
         raise RuntimeError(f"the {device.type} export calls the kernel ops {ops}, "
                            f"expected {want}")

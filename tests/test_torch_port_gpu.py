@@ -419,10 +419,11 @@ def test_graphed_chunks_match_eager_steps(cuda, pipeline):
 def test_s2g_eval_forward_on_the_card_equals_its_plain_forward(cuda, dtype):
     """s2g's BN generator in eval mode with non-trivial running statistics
     (two train-mode forwards first), through ``build_serving_fn`` on the
-    card: the mel kernel once, conv1 and the stem never (their counters stay
-    at 0: the kernels compute InstanceNorm); the same weights' forward on the
-    plain mel, with ``plain``, agrees within the mel kernel's round-off
-    (rel L2 < 1e-3 in fp32, < 2e-2 in bf16)."""
+    card: the mel kernel once, bn_act once a BN layer (24), conv1 and the stem
+    never (their counters stay at 0: the kernels compute InstanceNorm); the
+    same weights' forward on the plain mel, with ``plain`` (which keeps BN's
+    plain path), agrees within the mel kernel's round-off (rel L2 < 1e-3 in
+    fp32, < 2e-2 in bf16) and launches nothing."""
     from speechdrivestemplates_tpu_torch import kernels
     from speechdrivestemplates_tpu_torch.config import s2g
     from speechdrivestemplates_tpu_torch.datasets.speakers_stat import get_speaker_stat
@@ -444,7 +445,7 @@ def test_s2g_eval_forward_on_the_card_equals_its_plain_forward(cuda, dtype):
     kernels.reset_launch_counts()
     got = fn(audio)
     torch.cuda.synchronize()
-    assert not has_code and dict(kernels.LAUNCHES) == {"mel": 1}
+    assert not has_code and dict(kernels.LAUNCHES) == {"mel": 1, "bn_act": 24}
     with torch.no_grad():
         pred = model(M.mel_spectrogram_plain(audio), 64, None, plain=True)
     stat = {k: torch.as_tensor(np.repeat(np.asarray(v)[None], 8, 0)).cuda()
@@ -452,7 +453,7 @@ def test_s2g_eval_forward_on_the_card_equals_its_plain_forward(cuda, dtype):
     want = get_final_results(pred, stat["mean"], stat["std"], stat["scale_factor"], False)
     rel = (torch.linalg.norm(got.float() - want.float()) / torch.linalg.norm(want.float())).item()
     assert got.shape == (8, 64, 2, 121) and rel < (1e-3 if dtype == "fp32" else 2e-2), rel
-    assert dict(kernels.LAUNCHES) == {"mel": 1}
+    assert dict(kernels.LAUNCHES) == {"mel": 1, "bn_act": 24}
 
 
 def test_graph_replays_draw_fresh_pose2pose_noise(cuda):
@@ -668,7 +669,7 @@ def _serving_fn(preset: str, seed: int = 6):
 
 
 def _serving_kernels(has_code: bool) -> dict:
-    return {"mel": 1, "conv1": 1, "stem": 1} if has_code else {"mel": 1}
+    return {"mel": 1, "conv1": 1, "stem": 1} if has_code else {"mel": 1, "bn_act": 24}
 
 
 @pytest.mark.parametrize("preset", ["sdt_bp", "s2g"])
@@ -678,7 +679,8 @@ def test_graphed_serving_equals_the_eager_forward(cuda, preset):
     the module's eager poses of those; the poses a call returned stay as they
     were after later calls, and a replay after the resize matrices' cache was
     cleared still reads the matrices it captured; each call, on every route,
-    runs mel (and, with an IN encoder, conv1 and the stem) once."""
+    runs mel (and, with an IN encoder, conv1 and the stem) once, and a BN
+    generator bn_act once a layer."""
     from speechdrivestemplates_tpu_torch import kernels
     from speechdrivestemplates_tpu_torch.ops import resize
 
@@ -746,3 +748,119 @@ def test_graphed_serving_routes_by_signature(cuda):
     torch.cuda.synchronize()
     calls = sum(fn.routes.values())
     assert dict(kernels.executions()) == {"mel": calls, "conv1": calls, "stem": calls}
+
+
+# ---- eval-mode BN + lrelu + cast in one pass (sdt::bn_act) ------------------------------
+
+# s2g's BN activations at 427 mel frames and 64 pose frames, batch aside: the audio
+# encoder's eight 2-D layers, then the 1-D lengths of the UNet and the decoder
+S2G_BN_2D = [(64, 80, 427), (64, 40, 213), (128, 40, 213), (128, 20, 106), (256, 20, 106),
+             (256, 10, 53), (256, 10, 53), (256, 5, 51)]
+S2G_BN_1D = [(256, t) for t in (64, 64, 32, 16, 8, 4, 2, 4, 8, 16, 32, 64, 64, 64, 64, 64)]
+
+
+def _bn_layer(c, rng):
+    """A BatchNorm in eval mode with the benchmark's seeded statistics: scale
+    1 + 0.1 N, shift and running mean 0.1 N, running variance exp(0.2 N)."""
+    from speechdrivestemplates_tpu_torch.models.blocks import BatchNorm
+
+    bn = BatchNorm(c).cuda().eval()
+    with torch.no_grad():
+        bn.weight.copy_(1 + _randn(rng, c, scale=0.1))
+        bn.bias.copy_(_randn(rng, c, scale=0.1))
+        bn.running_mean.copy_(_randn(rng, c, scale=0.1))
+        bn.running_var.copy_(torch.exp(_randn(rng, c, scale=0.2)))
+    return bn.requires_grad_(False)
+
+
+def _conv_like(seed, shape, bn, dtype, misaligned=False):
+    """An activation around the layer's running statistics (sd 1 about each
+    channel's mean, the first element of each row exactly at it), in
+    ``dtype``; ``misaligned`` puts its first element 2 or 4 bytes past a
+    16-byte boundary."""
+    per_channel = (-1,) + (1,) * (len(shape) - 2)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=g, device="cuda") * bn.running_var.sqrt().view(per_channel) \
+        + bn.running_mean.view(per_channel)
+    x[..., 0] = bn.running_mean.view(per_channel[:-1])
+    x = x.to(dtype)
+    if misaligned:
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+        buf[1:].copy_(x.flatten())
+        x = buf[1:].view(shape)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(128, *S2G_BN_2D[0])] + [(2, *s) for s in S2G_BN_2D]
+                         + [(2, 256, t) for t in (2, 4, 8, 16, 32, 64)] + ["misaligned", "relu"],
+                         ids=lambda s: "x".join(map(str, s)) if isinstance(s, tuple) else s)
+def test_bn_act_matches_the_plain_path_within_an_ulp(cuda, shape, dtype):
+    """``sdt::bn_act`` against the plain path (``BatchNorm`` in eval mode, leaky
+    ReLU, the cast back) at s2g's layer shapes, layer 0 at B = 2 and 128:
+    within 1 ulp of the compute dtype on every element, one launch. The kernel
+    applies the plain path's fp32 steps in its order, so it should read 0; the
+    fold into one scale and shift rounds otherwise, and a lower precision would
+    miss by many ulps. ``misaligned``: a (3, 256, 5, 51) view 2 or 4 bytes off
+    a 16-byte boundary takes the element-wise route; ``relu``: slope 0, as
+    the discriminator's layers take, at its second layer's (2, 512, 16)."""
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.ops import bn_act
+
+    rng = np.random.RandomState(11)
+    misaligned, slope = shape == "misaligned", 0.0 if shape == "relu" else 0.2
+    shape = {"misaligned": (3, 256, 5, 51), "relu": (2, 512, 16)}.get(shape, shape)
+    bn = _bn_layer(shape[1], rng)
+    x = _conv_like(11, shape, bn, dtype, misaligned)
+    before = kernels.LAUNCHES["bn_act"]
+    with torch.no_grad():
+        got = bn_act.bn_act_kernel(x, bn, slope)
+        want = bn_act.bn_act_plain(x, bn, slope)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bn_act"] == before + 1
+    assert got.shape == want.shape == shape and got.dtype == want.dtype == dtype
+    assert int(bn_act.ulp_distance(got, want).max()) <= 1
+    assert torch.isfinite(got.float()).all()
+
+
+def test_s2g_serving_replay_equals_its_plain_bn_forward_bit_for_bit(cuda):
+    """s2g's bf16 serving function at B = 4 with the benchmark's seeded BN
+    statistics: its eager call, its capture call and a replay (each 24 bn_act
+    launches or replayed executions) return the same poses, bit for bit, and
+    those poses are the serving forward with every BN layer on its plain path
+    (``plain``), bit for bit."""
+    from speechdrivestemplates_tpu_torch import config, kernels
+    from speechdrivestemplates_tpu_torch.models import build_model
+    from speechdrivestemplates_tpu_torch.ops import mel as M
+    from speechdrivestemplates_tpu_torch.ops.pose import get_final_results
+    from speechdrivestemplates_tpu_torch.serving import build_serving_fn
+
+    cfg = config.s2g()
+    rng = np.random.RandomState(13)
+    model = build_model("SequenceGeneratorCNN", cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(6))
+    sd = model.state_dict()
+    for k in [k for k in sd if k.endswith(".norm.running_mean")]:
+        c = sd[k].numel()
+        sd[k] = torch.from_numpy((rng.randn(c) * 0.1).astype(np.float32))
+        sd[k[:-4] + "var"] = torch.from_numpy(np.exp(rng.randn(c) * 0.2).astype(np.float32))
+        sd[k[:-12] + "weight"] = torch.from_numpy((1 + rng.randn(c) * 0.1).astype(np.float32))
+        sd[k[:-12] + "bias"] = torch.from_numpy((rng.randn(c) * 0.1).astype(np.float32))
+    fn, _ = build_serving_fn(cfg, sd, "cuda")
+    audio = _randn(rng, 4, 68267, scale=0.1)
+    kernels.reset_launch_counts()
+    outs = [fn(audio) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert dict(fn.routes) == {"eager": 1, "captured": 1, "replayed": 1}
+    assert kernels.executions()["bn_act"] == 3 * 24
+    m = fn.module  # ServingModule.forward, with plain BN layers
+    before = dict(kernels.LAUNCHES)
+    with torch.no_grad():
+        pred = m.model(M.mel_spectrogram(audio), m.num_frames, None, plain=True)
+        want = get_final_results(pred, m.mean.expand(4, -1), m.std.expand(4, -1),
+                                 m.scale.expand(4), m.hierarchical, m.num_kp)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bn_act"] == before["bn_act"]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert torch.equal(outs[0], want)

@@ -460,11 +460,12 @@ def test_op_fakes_give_the_plain_versions_shapes_on_fake_cuda_tensors(name, case
 
 @pytest.mark.parametrize("preset, want", [
     ("sdt_bp", {"sdt.conv1_in": 1, "sdt.mel": 1, "sdt.stem": 1}),
-    ("s2g", {"sdt.mel": 1})])
+    ("s2g", {"sdt.bn_act": 24, "sdt.mel": 1})])
 def test_the_card_route_exports_its_kernel_ops_once_each(preset, want):
     """The card's serving route traced by ``torch.export`` on the CPU calls
     each kernel of the model's route once (``utils/export.py::route_ops``):
-    SDT-BP mel, conv1 and the stem, s2g (a BN encoder) the mel kernel alone.
+    SDT-BP mel, conv1 and the stem, s2g (a BN encoder) the mel kernel, and
+    bn_act once for each of its 24 BN layers.
     The trace takes meta tensors, which the wrappers route as CUDA tensors to
     the same ops' fakes: a CPU-only torch build has no CUDA device guard, so
     a fake CUDA tensor cannot be indexed there (the card's build traces fake
@@ -483,7 +484,7 @@ def test_the_card_route_exports_its_kernel_ops_once_each(preset, want):
     with torch.no_grad():
         module(*args)  # the eager call export_serving_fn makes first, filling the caches
         program = torch.export.export(module, args)
-    assert graph_ops(program) == route_ops(cfg) == want
+    assert graph_ops(program) == route_ops(module.model) == want
     assert not kernels.LAUNCHES
     out = [n for n in program.graph.nodes if n.op == "output"][0].args[0][0].meta["val"]
     assert tuple(out.shape) == (2, 64, 2, 121) and out.dtype == torch.float32
@@ -501,8 +502,8 @@ def test_kernel_launches_live_in_the_op_implementations_alone():
     ops_file = "speechdrivestemplates_tpu_torch/kernels/ops.py"
     assert {k: v for k, v in found.items() if v} == {ops_file: found[ops_file]}
     text = (PORT / "kernels" / "ops.py").read_text()
-    assert len(re.findall(r"LAUNCHES\[[^\]]*\]\s*\+= 1", text)) == 4
-    assert len(re.findall(r"library\(\"\w+\"\)\.sdt_\w+_forward\(", text)) == 4
+    assert len(re.findall(r"LAUNCHES\[[^\]]*\]\s*\+= 1", text)) == 5
+    assert len(re.findall(r"library\(\"\w+\"\)\.sdt_\w+_forward\(", text)) == 5
 
 
 def test_runner_loads_no_model_code(tmp_path):
