@@ -1,4 +1,4 @@
-"""The five kernels as ``torch.library`` custom ops, namespace ``sdt``.
+"""The six kernels as ``torch.library`` custom ops, namespace ``sdt``.
 
     sdt::mel(audio, cs_hi, cs_lo, fb_hi, fb_lo)  (B, L) f32 -> (B, 80, L//160+1) f32
     sdt::conv1_in(mel, w1, slope, dtype)         (B, 80, W1) f32 -> (B, 82, W1, 64) dtype
@@ -6,6 +6,13 @@
     sdt::shift_taps(x, w, m_out, subtile)        (N, M, C) bf16 -> (N, m_out, C) bf16
     sdt::bn_act(x, running_mean, running_var, weight, bias, slope)
                                                  (B, C, ...) dtype -> the same shape, dtype
+    sdt::in_act(x, slope)                        (B, C, H, W) or (B, C, T) dtype -> the same
+                                                 shape and strides, dtype
+    sdt::in_act_stats(x, slope)                  in_act's output, and the fp32 mean and
+                                                 variance it used, (B, C) or (B, T) each
+
+``in_act_stats`` launches the same kernel as ``in_act`` and lets tests read
+its statistics; the serving route calls ``in_act``.
 
 Each op is a schema on one ``torch.library.Library`` with two
 registrations (``torch.library.custom_op`` would add a Python autograd and
@@ -52,6 +59,8 @@ LIB.define("stem(Tensor y1, Tensor w2t, Tensor w3t, float slope) -> Tensor")
 LIB.define("shift_taps(Tensor x, Tensor w, int m_out, bool subtile) -> Tensor")
 LIB.define("bn_act(Tensor x, Tensor running_mean, Tensor running_var, Tensor weight, "
            "Tensor bias, float slope) -> Tensor")
+LIB.define("in_act(Tensor x, float slope) -> Tensor")
+LIB.define("in_act_stats(Tensor x, float slope) -> (Tensor, Tensor, Tensor)")
 
 
 @torch.library.impl("sdt::mel", "CUDA", lib=LIB)
@@ -164,3 +173,64 @@ def bn_act(x, running_mean, running_var, weight, bias, slope):
 @torch.library.register_fake("sdt::bn_act", lib=LIB)
 def _(x, running_mean, running_var, weight, bias, slope):
     return x.new_empty(x.shape)
+
+
+def in_act_slab(x: torch.Tensor):
+    """``(N, R, K)``: ``x`` as the dense slab whose N x K columns the IN
+    kernel normalizes over R, K contiguous: a channels-last (B, C, H, W) as
+    (B, H x W, C), a contiguous one as (B x C, H x W, 1), a contiguous (B, C,
+    T) as itself (the 1-D norm over C). None for another layout."""
+    if x.ndim == 4:
+        B, C, H, W = x.shape
+        if x.is_contiguous(memory_format=torch.channels_last):
+            return B, H * W, C
+        if x.is_contiguous():
+            return B * C, H * W, 1
+    elif x.ndim == 3 and x.is_contiguous():
+        return tuple(x.shape)
+    return None
+
+
+def _in_act(x, slope, stats):
+    if in_act_slab(x) is None:
+        x = x.contiguous()
+    N, R, K = in_act_slab(x)
+    out = torch.empty_like(x)  # x's strides
+    mean, var = (_in_act_stat(x) for _ in range(2)) if stats else (None, None)
+    err = library("in_act").sdt_in_act_forward(
+        x.data_ptr(), out.data_ptr(), mean.data_ptr() if stats else None,
+        var.data_ptr() if stats else None, int(x.dtype == torch.bfloat16), N, R, K,
+        float(slope), current_stream(x.device))
+    LAUNCHES["in_act"] += 1
+    check(err, "sdt_in_act_forward")
+    return out, mean, var
+
+
+def _in_act_stat(x):
+    """A column statistic's (B, C) or (B, T), fp32."""
+    cols = x.shape[1] if x.ndim == 4 else x.shape[2]
+    return torch.empty((x.shape[0], cols), dtype=torch.float32, device=x.device)
+
+
+def _in_act_fake(x):
+    return torch.empty_like(x) if in_act_slab(x) is not None else x.new_empty(x.shape)
+
+
+@torch.library.impl("sdt::in_act", "CUDA", lib=LIB)
+def in_act(x, slope):
+    return _in_act(x, slope, False)[0]
+
+
+@torch.library.register_fake("sdt::in_act", lib=LIB)
+def _(x, slope):
+    return _in_act_fake(x)
+
+
+@torch.library.impl("sdt::in_act_stats", "CUDA", lib=LIB)
+def in_act_stats(x, slope):
+    return _in_act(x, slope, True)
+
+
+@torch.library.register_fake("sdt::in_act_stats", lib=LIB)
+def _(x, slope):
+    return _in_act_fake(x), _in_act_stat(x), _in_act_stat(x)

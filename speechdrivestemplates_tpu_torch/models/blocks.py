@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import bn_act
+from ..ops import bn_act, in_act
 from ..parallel import dist as pdist
 
 NORM_EPS = 1e-5
@@ -127,10 +127,12 @@ class ConvNormRelu(nn.Module):
 
     ``conv_type`` is '1d' or '2d'; ``kernel_size``/``stride``/``padding``
     override the defaults (ints or per-axis tuples, torch semantics). ``norm``
-    is 'IN' or 'BN' (submodule ``norm``), 1D or 2D. A BN layer in eval mode
-    applies its norm, lrelu and cast by ``ops/bn_act.py``: one kernel on the
-    card, bit for bit the plain path's, which train mode, the CPU and ``plain``
-    (a reference) keep. The kernel has no backward, as the IN stem's has none.
+    is 'IN' or 'BN' (submodule ``norm``), 1D or 2D. A layer in eval mode
+    applies its norm, lrelu and cast in one kernel on the card: a BN layer by
+    ``ops/bn_act.py``, bit for bit the plain path's, an IN layer by
+    ``ops/in_act.py``, whose statistics sum in another order. Train mode, the CPU and
+    ``plain`` (a reference) keep the plain path. The kernels have no
+    backward, as the IN stem's has none.
     """
 
     def __init__(self, conv_type: str, in_channels: int, out_channels: int,
@@ -154,16 +156,16 @@ class ConvNormRelu(nn.Module):
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         c = self.conv
-        if self.conv_type == "2d" and self.norm is None:
+        fused = not (plain or self.training)
+        if self.conv_type == "2d" and self.norm is None and not fused:
             return conv_norm_relu_2d(x, c.weight, c.stride, c.padding, self.slope,
                                      self.dtype)
         conv = F.conv2d if self.conv_type == "2d" else F.conv1d
         y = conv(x.to(self.dtype), c.weight.to(self.dtype), stride=c.stride,
                  padding=c.padding)
-        if self.norm is None:
-            y = channel_norm_1d(y)
-        elif not (plain or self.training):
+        if fused:
+            if self.norm is None:
+                return in_act.in_act(y, self.slope)
             return bn_act.bn_act(y, self.norm, self.slope)
-        else:
-            y = self.norm(y)
+        y = channel_norm_1d(y) if self.norm is None else self.norm(y)
         return F.leaky_relu(y, self.slope).to(self.dtype)

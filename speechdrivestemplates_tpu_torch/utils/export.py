@@ -16,7 +16,8 @@ a profiler session: the graph holds none of them.
 The artifact holds the route of the device it was exported on. Exported on
 the card, its graph calls the kernels as ``torch.ops.sdt.*`` (the export
 raises unless it calls each kernel of the model's route as often as
-``route_ops`` says: once, and ``bn_act`` once a BN layer); exported on
+``route_ops`` says: once, ``bn_act`` once a BN layer and ``in_act`` once an
+IN layer after the stem); exported on
 the CPU, it holds the plain route and no kernel op. It loads on that device
 only (``load_serving_fn``), in a process that has registered the ``sdt`` ops
 by importing ``kernels``, as this module does: ``torch.export.load`` refuses
@@ -63,15 +64,21 @@ def route_ops(model: torch.nn.Module) -> Dict[str, int]:
     """The kernel ops one call of the card's serving route through the
     generator ``model`` makes: the mel kernel; the conv1 and stem kernels of
     an InstanceNorm audio encoder; bn_act once for each BatchNorm layer (a
-    ``ConvNormRelu`` with a norm module: s2g's 24)."""
+    ``ConvNormRelu`` with a norm module: s2g's 24); in_act once for each IN
+    layer after the stem (SDT-BP's 21: audio encoder layers 3-7, the UNet's
+    12 and the decoder's 4)."""
     from ..models.blocks import ConvNormRelu
 
     ops = {"sdt.mel": 1}
+    layers = [m for m in model.modules() if isinstance(m, ConvNormRelu)]
+    bn = sum(m.norm is not None for m in layers)
+    in_layers = len(layers) - bn
     if model.audio_encoder.norm == "IN":
         ops.update({"sdt.conv1_in": 1, "sdt.stem": 1})
-    bn = sum(isinstance(m, ConvNormRelu) and m.norm is not None for m in model.modules())
-    if bn:
-        ops["sdt.bn_act"] = bn
+        in_layers -= 3  # the stem's
+    for name, n in (("sdt.bn_act", bn), ("sdt.in_act", in_layers)):
+        if n:
+            ops[name] = n
     return ops
 
 

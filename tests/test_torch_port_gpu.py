@@ -199,6 +199,7 @@ def test_kernel_wrappers_raise_on_cuda_tensors_that_require_grad(cuda):
     drop a gradient, and launches nothing."""
     from speechdrivestemplates_tpu_torch import kernels
     from speechdrivestemplates_tpu_torch.ops import conv1 as C1
+    from speechdrivestemplates_tpu_torch.ops import in_act as IA
     from speechdrivestemplates_tpu_torch.ops import mel as M
     from speechdrivestemplates_tpu_torch.ops import shift_probe as SP
     from speechdrivestemplates_tpu_torch.ops import stem as S
@@ -212,7 +213,8 @@ def test_kernel_wrappers_raise_on_cuda_tensors_that_require_grad(cuda):
              lambda: S.stem_tail_kernel(torch.zeros(2, 82, 64, 64, device="cuda"), w2, w3),
              lambda: S.audio_encoder_stem(_randn(rng, 2, 80, 64), w1, w2, w3),
              lambda: SP.shift_taps(_randn(rng, 2, 300, 64).to(torch.bfloat16).requires_grad_(),
-                                   _randn(rng, 9, 64, 64).to(torch.bfloat16), 250)]
+                                   _randn(rng, 9, 64, 64).to(torch.bfloat16), 250),
+             lambda: IA.in_act_kernel(_randn(rng, 2, 256, 8).requires_grad_(), 0.2)]
     before = dict(kernels.LAUNCHES)
     for call in calls:
         with pytest.raises(RuntimeError, match="has no backward"):
@@ -225,9 +227,10 @@ def test_kernel_wrappers_raise_on_cuda_tensors_that_require_grad(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_generator_train_mode_runs_the_plain_stem_with_gradients(cuda, dtype):
-    """Train mode launches no conv1 or stem kernel and the stem's weights get
-    gradients (cuDNN under autograd); eval mode under no_grad launches each
-    kernel once."""
+    """Train mode launches no conv1, stem or in_act kernel and the stem's
+    weights get gradients (cuDNN under autograd); eval mode under no_grad
+    launches conv1 and the stem once each and in_act once for each of the 21
+    IN layers after the stem."""
     from speechdrivestemplates_tpu_torch import kernels
     from speechdrivestemplates_tpu_torch.config import sdt_bp
     from speechdrivestemplates_tpu_torch.models import build_model
@@ -240,16 +243,16 @@ def test_generator_train_mode_runs_the_plain_stem_with_gradients(cuda, dtype):
     model.train()
     model(mel, 32, code).float().square().mean().backward()
     torch.cuda.synchronize()
-    assert {n: kernels.LAUNCHES[n] - before.get(n, 0) for n in ("conv1", "stem")} == \
-        {"conv1": 0, "stem": 0}
+    assert {n: kernels.LAUNCHES[n] - before.get(n, 0) for n in ("conv1", "stem", "in_act")} == \
+        {"conv1": 0, "stem": 0, "in_act": 0}
     for layer in model.audio_encoder.layers()[:3]:
         g = layer.conv.weight.grad
         assert g is not None and torch.isfinite(g).all() and g.abs().sum() > 0
     model.eval()
     with torch.no_grad():
         model(mel, 32, code)
-    assert {n: kernels.LAUNCHES[n] - before.get(n, 0) for n in ("conv1", "stem")} == \
-        {"conv1": 1, "stem": 1}
+    assert {n: kernels.LAUNCHES[n] - before.get(n, 0) for n in ("conv1", "stem", "in_act")} == \
+        {"conv1": 1, "stem": 1, "in_act": 21}
 
 
 def test_train_step_on_the_card(cuda):
@@ -580,11 +583,15 @@ def _op_args(name, rng):
     """Arguments of ``torch.ops.sdt.<name>`` at a serving shape, and its plain
     version on them with the gate of its kernel's tests (rtol, atol)."""
     from speechdrivestemplates_tpu_torch.ops import conv1 as C1
+    from speechdrivestemplates_tpu_torch.ops import in_act as IA
     from speechdrivestemplates_tpu_torch.ops import mel as M
     from speechdrivestemplates_tpu_torch.ops import shift_probe as SP
     from speechdrivestemplates_tpu_torch.ops import stem as S
 
     bf = torch.bfloat16
+    if name == "in_act":  # layer 3's channels-last activation; one bf16 ulp is 2^-8 relative
+        x = _randn(rng, 3, 20, 106, 128).to(bf).permute(0, 3, 1, 2)
+        return (x, 0.2), IA.in_act_plain(x, 0.2), (1e-2, 1e-2)
     if name == "mel":
         audio = _randn(rng, 3, 68267, scale=0.1)
         return ((audio, *M._kernel_tables(audio.device)), M.mel_spectrogram_plain(audio),
@@ -602,7 +609,7 @@ def _op_args(name, rng):
     return (x, w, 500, True), SP.shift_taps_plain(x, w, 500), (1e-2, 1e-3)
 
 
-@pytest.mark.parametrize("name", ["mel", "conv1_in", "stem", "shift_taps"])
+@pytest.mark.parametrize("name", ["mel", "conv1_in", "stem", "shift_taps", "in_act"])
 def test_ops_match_their_plain_versions(cuda, name):
     """Each op called through ``torch.ops.sdt`` directly, as an exported graph
     calls it: one launch, the plain version's result within its kernel's gate."""
@@ -617,7 +624,7 @@ def test_ops_match_their_plain_versions(cuda, name):
     torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("name", ["mel", "conv1_in", "stem", "shift_taps"])
+@pytest.mark.parametrize("name", ["mel", "conv1_in", "stem", "shift_taps", "in_act"])
 def test_opcheck(cuda, name):
     """``torch.library.opcheck``: the schema, the fake against the real
     output, the autograd registration, and a trace under AOT dispatch."""
@@ -627,8 +634,9 @@ def test_opcheck(cuda, name):
 
 def test_cuda_export_equals_build_serving_fn(cuda, tmp_path):
     """SDT-BP bf16 exported on the card at B = 4: its graph calls mel, conv1
-    and the stem once each, one call of the loaded artifact launches each
-    kernel once, and its poses are ``build_serving_fn``'s on the same inputs."""
+    and the stem once each and in_act 21 times, one call of the loaded
+    artifact launches each kernel as often, and its poses are
+    ``build_serving_fn``'s on the same inputs."""
     from speechdrivestemplates_tpu_torch import kernels
     from speechdrivestemplates_tpu_torch.config import sdt_bp
     from speechdrivestemplates_tpu_torch.models import build_model
@@ -642,7 +650,7 @@ def test_cuda_export_equals_build_serving_fn(cuda, tmp_path):
     torch.save({"model_state_dict": {"module.netG." + k: v for k, v in sd.items()}}, ckpt)
     meta = export_serving_fn(cfg, ckpt, str(tmp_path / "bp.pt2"), batch_size=4)
     assert meta["device"] == "cuda"
-    assert meta["ops"] == {"sdt.conv1_in": 1, "sdt.mel": 1, "sdt.stem": 1}
+    assert meta["ops"] == {"sdt.conv1_in": 1, "sdt.in_act": 21, "sdt.mel": 1, "sdt.stem": 1}
     art = load_serving_fn(str(tmp_path / "bp.pt2"))
     fn, _ = build_serving_fn(cfg, sd, "cuda")
     rng = np.random.RandomState(5)
@@ -650,7 +658,7 @@ def test_cuda_export_equals_build_serving_fn(cuda, tmp_path):
     kernels.reset_launch_counts()
     got = art(audio, code)
     torch.cuda.synchronize()
-    assert dict(kernels.LAUNCHES) == {"mel": 1, "conv1": 1, "stem": 1}
+    assert dict(kernels.LAUNCHES) == {"mel": 1, "conv1": 1, "stem": 1, "in_act": 21}
     want = fn(audio, code)
     rel = (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
     assert got.shape == (4, 64, 2, 121) and rel < 1e-3, rel
@@ -669,7 +677,8 @@ def _serving_fn(preset: str, seed: int = 6):
 
 
 def _serving_kernels(has_code: bool) -> dict:
-    return {"mel": 1, "conv1": 1, "stem": 1} if has_code else {"mel": 1, "bn_act": 24}
+    return ({"mel": 1, "conv1": 1, "stem": 1, "in_act": 21} if has_code
+            else {"mel": 1, "bn_act": 24})
 
 
 @pytest.mark.parametrize("preset", ["sdt_bp", "s2g"])
@@ -679,8 +688,9 @@ def test_graphed_serving_equals_the_eager_forward(cuda, preset):
     the module's eager poses of those; the poses a call returned stay as they
     were after later calls, and a replay after the resize matrices' cache was
     cleared still reads the matrices it captured; each call, on every route,
-    runs mel (and, with an IN encoder, conv1 and the stem) once, and a BN
-    generator bn_act once a layer."""
+    runs mel (and, with an IN encoder, conv1 and the stem) once, an IN
+    generator in_act once a layer after the stem and a BN generator bn_act
+    once a layer."""
     from speechdrivestemplates_tpu_torch import kernels
     from speechdrivestemplates_tpu_torch.ops import resize
 
@@ -747,7 +757,8 @@ def test_graphed_serving_routes_by_signature(cuda):
     assert [route(req[2]), route(req[3])] == ["replayed", "eager"]
     torch.cuda.synchronize()
     calls = sum(fn.routes.values())
-    assert dict(kernels.executions()) == {"mel": calls, "conv1": calls, "stem": calls}
+    assert dict(kernels.executions()) == {"mel": calls, "conv1": calls, "stem": calls,
+                                          "in_act": 21 * calls}
 
 
 # ---- eval-mode BN + lrelu + cast in one pass (sdt::bn_act) ------------------------------
@@ -864,3 +875,162 @@ def test_s2g_serving_replay_equals_its_plain_bn_forward_bit_for_bit(cuda):
     assert kernels.LAUNCHES["bn_act"] == before["bn_act"]
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
     assert torch.equal(outs[0], want)
+
+
+# ---- eval-mode InstanceNorm + lrelu + cast in one pass (sdt::in_act) ---------------------
+
+# SDT-BP's IN activations after the stem at 427 mel frames and 64 pose frames, batch
+# aside: audio encoder layers 3-7 (channels-last, as cuDNN leaves them), then the 1-D
+# lengths of the UNet and the decoder; layer 3 of the demo's 24 s clip, whose 12,000-row
+# planes split over a cluster of 8 blocks; and a 64,000-row plane that no cluster's shared
+# memory holds, so that the kernel reads it twice
+SDT_IN_2D = [(128, 20, 106), (256, 20, 106), (256, 10, 53), (256, 10, 53), (256, 5, 51)]
+SDT_IN_1D = [(256, t) for t in (64, 32, 16, 8, 4, 2)]
+DEMO_24S_LAYER3 = (1, 128, 20, 600)
+UNCACHED = (1, 8, 64, 1000)
+
+
+def _in_like(seed, shape, dtype, channels_last=True, misaligned=False):
+    """A conv-like activation in ``dtype``: per column (a 2-D (b, c) plane, a
+    1-D (b, t) column) a mean of N(0, 1) and a scale of exp(N(0, 0.5)) about
+    it; 2-D in channels-last unless asked otherwise; ``misaligned`` puts its
+    first element 2 or 4 bytes past a 16-byte boundary."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if len(shape) == 4:
+        B, C, H, W = shape
+        col = (B, C, 1, 1)
+    else:
+        B, C, T = shape
+        col = (B, 1, T)
+    x = torch.randn(shape, generator=g, device="cuda") \
+        * torch.exp(0.5 * torch.randn(col, generator=g, device="cuda")) \
+        + torch.randn(col, generator=g, device="cuda")
+    x = x.to(dtype)
+    if len(shape) == 4 and channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    if misaligned:
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+        buf[1:].copy_(x.permute(0, 2, 3, 1).flatten() if x.ndim == 4 else x.flatten())
+        x = buf[1:].view(x.permute(0, 2, 3, 1).shape).permute(0, 3, 1, 2) if x.ndim == 4 \
+            else buf[1:].view(shape)
+        assert x.data_ptr() % 16
+    return x
+
+
+def _in_cases():
+    two, one = [(b, *s) for b in (4, 128) for s in SDT_IN_2D], \
+        [(b, *s) for b in (4, 128) for s in SDT_IN_1D]
+    return two + one + [DEMO_24S_LAYER3, UNCACHED, "misaligned2d", "misaligned1d", "nchw"]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", _in_cases(),
+                         ids=lambda s: "x".join(map(str, s)) if isinstance(s, tuple) else s)
+def test_in_act_matches_the_plain_path(cuda, case, dtype):
+    """``sdt::in_act`` against the plain path (``instance_norm_2d`` or
+    ``channel_norm_1d``, leaky ReLU, the cast back) at SDT-BP's five 2-D and
+    six 1-D IN shapes at B = 4 and 128, the demo's 24 s layer 3 at B = 1 (a
+    cluster of blocks), a plane no cluster's shared memory holds (read twice),
+    misaligned views (the element-wise route) and a contiguous NCHW plane (the
+    row form): one
+    launch, the input's strides; the kernel's mean and biased variance within
+    1e-5 of ``var_mean``'s, relative to the column's |mean| + std and to its
+    variance; the output equal, bit for bit, to the plain path's steps taken
+    with the kernel's statistics; and against the plain path itself, fp32
+    within 2e-6 x max(1, |plain|), bf16 within that and one bf16 ulp of the
+    plain value (the statistics differ from ``var_mean``'s by fp32 round-off,
+    which near a column's mean is many bf16 ulps of a value near 0: the share
+    of elements one ulp off and of those further off are printed)."""
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.ops import bn_act, in_act
+
+    shape = {"misaligned2d": (3, 256, 5, 51), "misaligned1d": (3, 256, 64),
+             "nchw": (4, 128, 20, 106)}.get(case, case)
+    x = _in_like(17, shape, dtype, channels_last=case != "nchw",
+                 misaligned=str(case).startswith("misaligned"))
+    before = kernels.LAUNCHES["in_act"]
+    with torch.no_grad():
+        got, mean, var = in_act.in_act_kernel_stats(x, 0.2)
+        want = in_act.in_act_plain(x, 0.2)
+        dims, col = ((-2, -1), mean[:, :, None, None]) if x.ndim == 4 else (1, mean[:, None])
+        want_var, want_mean = torch.var_mean(x.float(), dim=dims, correction=0)
+        rstd = torch.rsqrt(var.view(col.shape) + 1e-5)
+        own = torch.nn.functional.leaky_relu((x.float() - col) * rstd, 0.2).to(dtype)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["in_act"] == before + 1
+    assert got.shape == want.shape == shape and got.dtype == want.dtype == dtype
+    assert got.stride() == x.stride() and torch.isfinite(got.float()).all()
+    scale = want_mean.abs() + want_var.sqrt()
+    assert ((mean - want_mean).abs() <= 1e-5 * scale).all()
+    assert ((var - want_var).abs() <= 1e-5 * want_var).all()
+    assert torch.equal(got, own)
+    g, w = got.float(), want.float()
+    gate = 2e-6 * w.abs().clamp(min=1)
+    if dtype == torch.bfloat16:
+        ulps = bn_act.ulp_distance(got, want)
+        far = ulps > 1
+        print(f"in_act {case} bf16: {ulps.eq(1).float().mean().item():.3e} of elements 1 ulp "
+              f"off, {far.float().mean().item():.3e} further (max |diff| "
+              f"{(g - w).abs()[far].max().item() if far.any() else 0.0:.3e})")
+        gate = gate + torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+    assert ((g - w).abs() <= gate).all(), ((g - w).abs() - gate).max().item()
+
+
+def test_serving_layers_reach_in_act_channels_last(cuda):
+    """In SDT-BP's bf16 serving forward at B = 4, cuDNN leaves the convolutions
+    of audio encoder layers 3-7 channels-last (the stem's output is its
+    permuted view), so in_act takes them in the column form; the 1-D layers
+    hand it contiguous (B, 256, T)."""
+    from speechdrivestemplates_tpu_torch.kernels.ops import in_act_slab
+    from speechdrivestemplates_tpu_torch.ops import in_act
+
+    fn, _ = _serving_fn("sdt_bp")
+    seen = []
+    real = in_act.in_act_kernel
+
+    def spy(y, slope):
+        seen.append((y.ndim, in_act_slab(y)))
+        return real(y, slope)
+
+    rng = np.random.RandomState(19)
+    in_act.in_act_kernel = spy
+    try:
+        with torch.inference_mode():
+            fn.module(_randn(rng, 4, 68267, scale=0.1), _randn(rng, 4, 32))
+    finally:
+        in_act.in_act_kernel = real
+    assert [s for n, s in seen if n == 4] == [(4, h * w, c) for c, h, w in SDT_IN_2D]
+    assert len(seen) == 21 and all(s[0] == 4 and s[1] == 256 for n, s in seen if n == 3)
+
+
+def test_sdt_bp_serving_replay_against_its_plain_forward(cuda):
+    """SDT-BP's bf16 serving function at B = 4: its eager call, its capture
+    call and a replay (21 in_act launches or replayed executions each) return
+    the same poses, bit for bit; the same forward with every IN layer on its
+    plain path (``plain``, and the mel kernel's spectrogram) lies within rel
+    L2 2e-2 of them, the bf16 gate the s2g forward is held to."""
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.ops import mel as M
+    from speechdrivestemplates_tpu_torch.ops.pose import get_final_results
+
+    fn, _ = _serving_fn("sdt_bp")
+    rng = np.random.RandomState(21)
+    audio, code = _randn(rng, 4, 68267, scale=0.1), _randn(rng, 4, 32)
+    kernels.reset_launch_counts()
+    outs = [fn(audio, code) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert dict(fn.routes) == {"eager": 1, "captured": 1, "replayed": 1}
+    assert kernels.executions()["in_act"] == 3 * 21
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    m = fn.module
+    before = dict(kernels.LAUNCHES)
+    with torch.no_grad():
+        pred = m.model(M.mel_spectrogram(audio), m.num_frames, code, plain=True)
+        want = get_final_results(pred, m.mean.expand(4, -1), m.std.expand(4, -1),
+                                 m.scale.expand(4), m.hierarchical, m.num_kp)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["in_act"] == before["in_act"]
+    rel = (torch.linalg.norm(outs[0].float() - want.float())
+           / torch.linalg.norm(want.float())).item()
+    print(f"in_act SDT-BP serving B=4 bf16: rel L2 to the plain forward {rel:.3e}")
+    assert rel < 2e-2, rel

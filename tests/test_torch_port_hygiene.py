@@ -409,7 +409,7 @@ def build_model_state(cfg):
 def _op_cases():
     """Per op, two shapes: (op name, the op's arguments as (shape, dtype) or
     plain values, the plain version on CPU tensors of those shapes)."""
-    from speechdrivestemplates_tpu_torch.ops import conv1, mel, shift_probe, stem
+    from speechdrivestemplates_tpu_torch.ops import conv1, in_act, mel, shift_probe, stem
 
     bf, f32 = torch.bfloat16, torch.float32
     tables = [((400, 512), bf)] * 2 + [((256, 80), bf)] * 2
@@ -432,11 +432,14 @@ def _op_cases():
                             torch.zeros(*t[0].shape, dtype=bf), torch.zeros(*t[1].shape,
                                                                             dtype=bf), m_out))
                        for n, m, c, m_out in ((1, 16, 64, 8), (3, 300, 128, 200))],
+        "in_act": [([(shape, dt), 0.2],
+                    lambda t, dt=dt: in_act.in_act_plain(torch.zeros(*t[0].shape, dtype=dt), 0.2))
+                   for shape, dt in (((2, 256, 5, 51), bf), ((3, 256, 2), f32))],
     }
 
 
 @pytest.mark.parametrize("case", [0, 1])
-@pytest.mark.parametrize("name", ["mel", "conv1_in", "stem", "shift_taps"])
+@pytest.mark.parametrize("name", ["mel", "conv1_in", "stem", "shift_taps", "in_act"])
 def test_op_fakes_give_the_plain_versions_shapes_on_fake_cuda_tensors(name, case):
     """Each kernel is the op ``torch.ops.sdt.<name>``; on fake CUDA tensors,
     as ``torch.export`` traces them, its fake gives the shape and dtype of the
@@ -459,13 +462,14 @@ def test_op_fakes_give_the_plain_versions_shapes_on_fake_cuda_tensors(name, case
 
 
 @pytest.mark.parametrize("preset, want", [
-    ("sdt_bp", {"sdt.conv1_in": 1, "sdt.mel": 1, "sdt.stem": 1}),
+    ("sdt_bp", {"sdt.conv1_in": 1, "sdt.in_act": 21, "sdt.mel": 1, "sdt.stem": 1}),
     ("s2g", {"sdt.bn_act": 24, "sdt.mel": 1})])
 def test_the_card_route_exports_its_kernel_ops_once_each(preset, want):
     """The card's serving route traced by ``torch.export`` on the CPU calls
     each kernel of the model's route once (``utils/export.py::route_ops``):
-    SDT-BP mel, conv1 and the stem, s2g (a BN encoder) the mel kernel, and
-    bn_act once for each of its 24 BN layers.
+    SDT-BP mel, conv1 and the stem, and in_act once for each of its 21 IN
+    layers after the stem; s2g (a BN encoder) the mel kernel, and bn_act once
+    for each of its 24 BN layers.
     The trace takes meta tensors, which the wrappers route as CUDA tensors to
     the same ops' fakes: a CPU-only torch build has no CUDA device guard, so
     a fake CUDA tensor cannot be indexed there (the card's build traces fake
@@ -493,7 +497,8 @@ def test_the_card_route_exports_its_kernel_ops_once_each(preset, want):
 def test_kernel_launches_live_in_the_op_implementations_alone():
     """A source scan: ``data_ptr()``, the kernels' C entry points and the
     launch counter's increment appear in ``kernels/ops.py`` alone, which
-    holds one of each per op."""
+    holds one of each per kernel (``in_act`` and ``in_act_stats`` share
+    theirs)."""
     import re
 
     pattern = re.compile(r"data_ptr\(|sdt_\w+_forward\(|LAUNCHES\[[^\]]*\]\s*\+=")
@@ -502,8 +507,8 @@ def test_kernel_launches_live_in_the_op_implementations_alone():
     ops_file = "speechdrivestemplates_tpu_torch/kernels/ops.py"
     assert {k: v for k, v in found.items() if v} == {ops_file: found[ops_file]}
     text = (PORT / "kernels" / "ops.py").read_text()
-    assert len(re.findall(r"LAUNCHES\[[^\]]*\]\s*\+= 1", text)) == 5
-    assert len(re.findall(r"library\(\"\w+\"\)\.sdt_\w+_forward\(", text)) == 5
+    assert len(re.findall(r"LAUNCHES\[[^\]]*\]\s*\+= 1", text)) == 6
+    assert len(re.findall(r"library\(\"\w+\"\)\.sdt_\w+_forward\(", text)) == 6
 
 
 def test_runner_loads_no_model_code(tmp_path):
