@@ -21,7 +21,8 @@ Voice2Pose models take), and ``trainer`` (epochs over
 ``datasets/gesture_dataset.py``, validation, test runs with FGD, reference-
 layout ``.pth`` checkpoints with resume files, resume / pretrain /
 auto-resume, preemption, TensorBoard scalars, the train set staged on the
-card, and K train steps in one CUDA graph, ``pipelines/graphed.py``).
+card, and K train steps in one CUDA graph through ``pipelines/graphed.py``, the
+capture protocol the serving function's graphs share).
 
 The serving export (``utils/export.py``): ``main --export`` writes the
 serving function as a ``torch.export`` artifact whose graph calls the kernels
@@ -33,11 +34,9 @@ Entry points run on the card unless the caller passes ``device="cpu"``:
 ``--test_only``, ``--demo_input`` and ``--export``), ``run_artifact.py``,
 ``chain_e2e`` (the paper's chain at ``bench_e2e.py``'s budget),
 ``serving.build_serving_fn``, ``python -m speechdrivestemplates_tpu_torch.serving``
-and ``models.build_model``. Three more measure the card:
-``profile_train`` (device time by kernel of the train step),
-``profile_kernels`` (the conv1 kernel and the tap-shift probe,
-``ops/shift_probe.py``, beside cuDNN) and ``profile_dispatch`` (host time
-where the host sets the pace). The serving forward is measured by the
-benchmark's serving cells (``BENCHMARK.json``); under any ``torch.profiler``
-session the port records its own spans (``utils/trace.py``).
+and ``models.build_model``. ``profile_kernels`` measures the conv1 kernel
+and the tap-shift probe (``ops/shift_probe.py``) beside cuDNN on the card.
+The serving forward and the graphed train step are measured by the
+benchmark's cells (``BENCHMARK.json``); under any ``torch.profiler`` session
+the port records its own spans (``utils/trace.py``).
 """

@@ -1,7 +1,8 @@
 """A synthetic speaker directory in the reference layout: one npz per clip
 (``pose`` (T, 3, 137), ``audio``, ``imgs``) and ``processed_137.csv``, so the
 train path runs end to end without downloads. For one seed it writes the same
-arrays and csv as the JAX package's ``datasets/synthetic.py``.
+arrays and csv as the JAX package's ``datasets/synthetic.py``. Beside it,
+``train_batch``: a random batch in the loader's form, made on the device.
 """
 
 from __future__ import annotations
@@ -10,6 +11,9 @@ import csv
 import os
 
 import numpy as np
+import torch
+
+from .speakers_stat import get_speaker_stat
 
 CSV_COLUMNS = ("dataset", "pose_fn", "speaker", "start", "end", "interval",
                "video_fn", "audio_fn")
@@ -59,3 +63,28 @@ def make_synthetic_speaker(root_dir: str, speaker: str = "oliver",
         writer.writerows(rows)
     return speaker_dir
 
+
+def train_batch(cfg, batch: int, num_train: int, device, seed: int = 0) -> dict:
+    """A random batch in the loader's form, on ``device``: audio of the
+    snapped clip length, N(0, 1) normalized poses, the speaker's statistics
+    (the parted or the global table, as DATASET.HIERARCHICAL_POSE says; on
+    global poses the global table again as ``speaker_stat_global``)."""
+    rng = np.random.RandomState(seed)
+    parted = cfg.DATASET.HIERARCHICAL_POSE
+    length = int(cfg.DATASET.NUM_FRAMES * cfg.DATASET.AUDIO_SR / cfg.DATASET.FPS)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def stat(parted):
+        return {k: dev(np.repeat(np.asarray(v)[None], batch, 0)) for k, v in
+                get_speaker_stat(cfg.DATASET.SPEAKER, cfg.DATASET.NUM_LANDMARKS, parted).items()}
+
+    out = {"audio": dev((rng.randn(batch, length) * 0.1).astype(np.float32)),
+           "poses": dev(rng.randn(batch, cfg.DATASET.NUM_FRAMES, 2,
+                                  cfg.DATASET.NUM_LANDMARKS).astype(np.float32)),
+           "clip_index": dev(np.arange(batch) % num_train),
+           "speaker_stat": stat(parted)}
+    if not parted:
+        out["speaker_stat_global"] = stat(False)
+    return out

@@ -1,30 +1,40 @@
-"""K train steps in one CUDA graph, fed from the train set on the card.
+"""The port's CUDA graphs: one capture protocol, and K train steps a graph.
 
-Counterpart of the JAX ``Trainer``'s ``_get_train_scan`` and
-``_train_epoch_chunked`` (TRAIN.STEPS_PER_DISPATCH = K > 1): where JAX scans
-the raw step over a (K, B) index chunk in one compiled program, the port
-captures one ``torch.cuda.CUDAGraph`` per chunk length (K, and the epoch's
-remainder). A graph holds L copies of the pipeline's step body: copy j reads
-row j of a static (L, B) int64 index buffer, gathers its batch from the
-device-resident train set (``gather``), runs the train step as it is (for
+``warm_up`` and ``Graph`` are the capture protocol that the serving function
+(``serving.py::ServingFn``) and the train loop (``ChunkRunner``) share.
+Capture records and runs nothing, so a function's first run is eager
+(``warm_up``), on the stream that captures next: it builds every lazily made
+constant (the mel kernel's tables, the resize matrices, the pose index
+tables, the optimizers' state, the handles' workspaces) before a capture
+could try to copy one from host memory, and makes cuDNN's plans and the
+kernels' one-time ``cudaFuncSetAttribute`` calls (``csrc/mel.cu``,
+``conv1.cu`` and ``stem.cu`` make it at their first launch in a process), so
+none happens under capture. A ``Graph`` then captures the function over
+static input buffers, with a private memory pool for its intermediates; a
+replay copies the inputs into those buffers, launches the graph and returns a
+copy of the static output (a caller may keep the outputs of earlier
+replays). Each capture adds the kernel launches it recorded to
+``kernels.CAPTURED`` and each replay adds them to ``kernels.REPLAYED``, so
+``kernels.executions()`` counts the kernels that ran on every route. A capture
+or replay that fails raises: there is no eager fallback on the card.
+
+K train steps a graph are the counterpart of the JAX ``Trainer``'s
+``_get_train_scan`` and ``_train_epoch_chunked`` (TRAIN.STEPS_PER_DISPATCH =
+K > 1): where JAX scans the raw step over a (K, B) index chunk in one compiled
+program, ``ChunkRunner`` captures one graph per chunk length (K, and the
+epoch's remainder). A graph holds L copies of the pipeline's step body: copy j
+reads row j of the static (L, B) int64 index buffer, gathers its batch from
+the device-resident train set (``gather``), runs the train step as it is (for
 Voice2Pose: the mel kernel, the generator's train forward, L1 + KL, backward,
 both Adams, the pose encoder's BN drift, the metrics) and writes its losses
-into row j of a static (L, n) output.
-
-Capture records and runs nothing, so the first chunk of a run runs eagerly as
-real steps of the schedule, on the stream that captures next: it builds every
-lazily made constant (the mel kernel's tables, the resize matrices, the pose
-index tables, the optimizers' state, the handles' workspaces) before a capture
-could try to copy one from host memory, and makes the kernels' one-time
-``cudaFuncSetAttribute`` calls (``csrc/mel.cu``, ``conv1.cu`` and ``stem.cu``
-make it at their first launch in a process), so none happens under capture. The next chunk of each length is
-captured, then replayed; every later one is replayed. The train state must be
-built ``capturable`` (Adams with device-side bias correction and tensor
-learning rates), and its noise generator is registered with each graph, so
-replays draw what eager steps would. A capture or replay that fails raises:
-there is no eager fallback on the card. The caller stages each epoch's index
-schedule on the device once (``index_tensor``); a chunk is a slice of it, and
-a replay's only copy is that slice into the graph's index buffer, on the card.
+into row j of a static (L, n) output. The first chunk of a run is the warm-up,
+real steps of the schedule; the next chunk of each length is captured, then
+replayed; every later one is replayed. The train state must be built
+``capturable`` (Adams with device-side bias correction and tensor learning
+rates), and its noise generator is registered with each graph, so replays
+draw what eager steps would. The caller stages each epoch's index schedule on
+the device once (``index_tensor``); a chunk is a slice of it, and a replay's
+only copy is that slice into the graph's index buffer, on the card.
 
 On the CPU there is no graph: ``run`` takes the same chunks through the step
 eagerly, so the chunk schedule, its logging and its preemption checks are
@@ -34,7 +44,6 @@ the same on both.
 from __future__ import annotations
 
 import collections
-from types import SimpleNamespace
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -42,6 +51,51 @@ import torch
 
 from .. import kernels
 from ..utils import trace
+
+
+def warm_up(fn, inputs: tuple, stream: torch.cuda.Stream):
+    """``fn(*inputs)`` run eagerly on ``stream``, after the work queued on the
+    caller's stream and before what the caller queues next. The inputs are
+    marked in use on ``stream`` and the output on the caller's stream, so the
+    allocator reuses neither's memory while the other stream may still read
+    it. ``None`` inputs pass through."""
+    cur = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(cur)
+    with torch.cuda.stream(stream):
+        out = fn(*inputs)
+    cur.wait_stream(stream)
+    for t in inputs:
+        if t is not None:
+            t.record_stream(stream)
+    out.record_stream(cur)
+    return out
+
+
+class Graph:
+    """``fn`` captured on ``stream`` over static copies of ``inputs``
+    (``None`` stays ``None``), once ``warm_up`` has run it; ``generators`` are
+    registered with the graph, so each replay draws what an eager run would.
+    ``graph(*inputs)`` replays it on the caller's stream."""
+
+    def __init__(self, fn, inputs: tuple, stream: torch.cuda.Stream, generators=()):
+        self.inputs = tuple(None if t is None else torch.empty_like(t) for t in inputs)
+        self.graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            self.graph.register_generator_state(gen)
+        before = collections.Counter(kernels.LAUNCHES)
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.out = fn(*self.inputs)
+        self.launches = collections.Counter(kernels.LAUNCHES) - before
+        kernels.CAPTURED.update(self.launches)
+
+    def __call__(self, *inputs) -> torch.Tensor:
+        for static, t in zip(self.inputs, inputs):
+            if static is not None:
+                static.copy_(t)
+        self.graph.replay()
+        kernels.REPLAYED.update(self.launches)
+        return self.out.clone()
 
 
 def gather(cache, idx: torch.Tensor):
@@ -72,9 +126,8 @@ class ChunkRunner:
         if graphed and not state.capturable:
             raise ValueError("CUDA-graph chunks need a train state built capturable")
         self.state, self.step_fn, self.cache = state, step_fn, cache
-        self.graphed = graphed
         self.names: Optional[List[str]] = None
-        self.graphs: Dict[int, SimpleNamespace] = {}
+        self.graphs: Dict[int, Graph] = {}
         self.stream = torch.cuda.Stream(state.device) if graphed else None
         self.warm = False
 
@@ -88,42 +141,20 @@ class ChunkRunner:
         return torch.stack(rows)
 
     def run(self, chunk: torch.Tensor) -> torch.Tensor:
-        dev = self.state.device
-        if not self.graphed:
+        if self.stream is None:
             return self._rows(chunk)
-        if not self.warm:  # real steps on the capture stream: lazy constants, workspaces
+        if not self.warm:
             with trace.span("chunk.warm"):
-                self.stream.wait_stream(torch.cuda.current_stream(dev))
-                chunk.record_stream(self.stream)
-                with torch.cuda.stream(self.stream):
-                    out = self._rows(chunk)
-                torch.cuda.current_stream(dev).wait_stream(self.stream)
+                out = warm_up(self._rows, (chunk,), self.stream)
             self.warm = True
             return out
         g = self.graphs.get(len(chunk))
         if g is None:
             with trace.span("chunk.capture"):
-                g = self._capture(len(chunk), chunk.shape[1])
+                step = self.state.step
+                g = self.graphs[len(chunk)] = Graph(self._rows, (chunk,), self.stream,
+                                                    (self.state.rng,))
+                self.state.step = step  # the capture ran no step
         with trace.span("chunk.replay"):
-            g.idx.copy_(chunk)
-            g.graph.replay()
-            kernels.REPLAYED.update(g.launches)
             self.state.step += len(chunk)
-            return g.out.clone()
-
-    def _capture(self, length: int, batch: int) -> SimpleNamespace:
-        dev, state = self.state.device, self.state
-        idx = torch.zeros((length, batch), dtype=torch.int64, device=dev)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(state.rng)
-        before, step0 = collections.Counter(kernels.LAUNCHES), state.step
-        with torch.cuda.graph(graph, stream=self.stream):
-            out = self._rows(idx)
-        state.step = step0  # the capture ran no step
-        launches = collections.Counter(kernels.LAUNCHES)
-        launches.subtract(before)
-        launches = +launches
-        kernels.CAPTURED.update(launches)
-        self.graphs[length] = g = SimpleNamespace(graph=graph, idx=idx, out=out,
-                                                  launches=launches)
-        return g
+            return g(chunk)

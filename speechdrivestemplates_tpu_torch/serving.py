@@ -10,28 +10,19 @@ input. ``ServingModule`` is that function as an ``nn.Module``, which
 ``utils/export.py`` exports at one (B, L) to a file that runs without this
 package's model code (``main --export``, ``run_artifact.py``).
 
-On a CUDA device ``fn`` replays a ``torch.cuda.CUDAGraph`` of the module's
-forward for each input signature (the audio's (B, L) and the code's shape,
-or no code) that repeats, as ``pipelines/graphed.py::ChunkRunner`` replays
-train steps; a call then costs the host one input copy, one graph launch and
-one output copy instead of ~330 launches. A signature's first call runs
-eagerly on the stream that captures next: it makes every lazily built
-constant (the mel kernel's tables, the resize matrices, the pose index
-tables), the kernels' one-time ``cudaFuncSetAttribute`` calls and cuDNN's
-plans, so that none happens under capture. Its second call captures the
-forward over static input buffers and replays it; every later call copies
-its inputs into those buffers, replays, and returns a copy of the static
-output (a caller may keep the outputs of earlier calls). The graphs of the
-``KEEP_GRAPHS`` most recently used signatures are kept, each with a private
-memory pool of one forward's intermediates; an evicted signature starts
-eagerly again. A capture that fails raises: there is no eager fallback on the
-card. On the CPU every call is eager. ``fn.routes`` counts the calls by route
-(``eager``, ``captured``, ``replayed``); each capture adds the kernels it
-recorded to ``kernels.CAPTURED`` and each replay adds them to
-``kernels.REPLAYED``, so ``kernels.executions()`` counts the kernels that ran
-on every route. A replayed call records the spans ``serve.forward`` and, inside
-it, ``serve.replay`` (``utils/trace.py``); the forward's sections record at a
-signature's eager call, and, flagged ``captured``, at its capture.
+On a CUDA device ``fn`` replays a CUDA graph of the module's forward for
+each input signature (the audio's (B, L) and the code's shape, or no code)
+that repeats, through the capture protocol the train loop shares
+(``pipelines/graphed.py``); a call then costs the host one input copy, one
+graph launch and one output copy instead of ~330 launches. A signature's
+first call is the protocol's eager warm-up, its second captures the forward
+and replays it, and every later call replays. The graphs of the
+``KEEP_GRAPHS`` most recently used signatures are kept; an evicted signature
+starts eagerly again. On the CPU every call is eager. ``fn.routes`` counts
+the calls by route (``eager``, ``captured``, ``replayed``). A replayed call
+records the spans ``serve.forward`` and, inside it, ``serve.replay``
+(``utils/trace.py``); the forward's sections record at a signature's eager
+call, and, flagged ``captured``, at its capture.
 
 Command line (one wav request; a reference-layout ``.pth`` checkpoint):
 
@@ -55,19 +46,18 @@ from __future__ import annotations
 
 import argparse
 import collections
-from types import SimpleNamespace
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from . import kernels
 from .config import load_config
 from .datasets.speakers_stat import get_speaker_stat
 from .models import build_model
 from .ops.mel import mel_spectrogram
 from .ops.pose import get_final_results
+from .pipelines.graphed import Graph, warm_up
 from .utils import trace
 from .utils.audio import load_wav
 from .utils.device import resolve_device
@@ -119,7 +109,7 @@ class ServingFn:
     def __init__(self, module: ServingModule, device: torch.device):
         self.module, self.device = module, device
         self.routes: collections.Counter = collections.Counter()
-        self.graphs: "collections.OrderedDict[tuple, SimpleNamespace]" = collections.OrderedDict()
+        self.graphs: "collections.OrderedDict[tuple, Graph]" = collections.OrderedDict()
         self.warm: set = set()  # signatures whose eager call has run
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
@@ -136,55 +126,22 @@ class ServingFn:
         g = self.graphs.get(key)
         if g is not None:
             self.graphs.move_to_end(key)
-            out = self._replay(g, audio, code)
-            self.routes["replayed"] += 1
+            route = "replayed"
         elif key in self.warm:
-            out = self._replay(self._capture(key, audio, code), audio, code)
-            self.routes["captured"] += 1
+            while len(self.graphs) >= KEEP_GRAPHS:
+                evicted, _ = self.graphs.popitem(last=False)
+                self.warm.discard(evicted)
+            g = self.graphs[key] = Graph(self.module, (audio, code), self.stream)
+            route = "captured"
         else:
-            out = self._eager(audio, code)
+            out = warm_up(self.module, (audio, code), self.stream)
             self.warm.add(key)
             self.routes["eager"] += 1
+            return out
+        with trace.span("serve.forward"), trace.span("serve.replay"):
+            out = g(audio, code)
+        self.routes[route] += 1
         return out
-
-    def _eager(self, audio, code):
-        cur = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            out = self.module(audio, code)
-        cur.wait_stream(self.stream)
-        for t in (audio, code):  # read on the capture stream
-            if t is not None:
-                t.record_stream(self.stream)
-        out.record_stream(cur)  # made on the capture stream, used on the caller's
-        return out
-
-    def _capture(self, key, audio, code) -> SimpleNamespace:
-        while len(self.graphs) >= KEEP_GRAPHS:
-            evicted, _ = self.graphs.popitem(last=False)
-            self.warm.discard(evicted)
-        static_audio = audio.new_empty(audio.shape)
-        static_code = None if code is None else code.new_empty(code.shape)
-        graph = torch.cuda.CUDAGraph()
-        before = collections.Counter(kernels.LAUNCHES)
-        self.stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.graph(graph, stream=self.stream):
-            out = self.module(static_audio, static_code)
-        launches = collections.Counter(kernels.LAUNCHES) - before
-        kernels.CAPTURED.update(launches)
-        self.graphs[key] = g = SimpleNamespace(graph=graph, audio=static_audio,
-                                               code=static_code, out=out, launches=launches)
-        return g
-
-    def _replay(self, g: SimpleNamespace, audio, code) -> torch.Tensor:
-        with trace.span("serve.forward"):
-            g.audio.copy_(audio)
-            if code is not None:
-                g.code.copy_(code)
-            with trace.span("serve.replay"):
-                g.graph.replay()
-            kernels.REPLAYED.update(g.launches)
-            return g.out.clone()
 
 
 def build_serving_fn(cfg, state_dict: Dict[str, torch.Tensor],

@@ -262,7 +262,7 @@ def test_train_step_on_the_card(cuda):
     from speechdrivestemplates_tpu_torch.config import sdt_bp
     from speechdrivestemplates_tpu_torch.pipelines.voice2pose import (Voice2PoseTrainState,
                                                                      train_step)
-    from speechdrivestemplates_tpu_torch.profile_train import train_batch
+    from speechdrivestemplates_tpu_torch.datasets.synthetic import train_batch
 
     cfg = sdt_bp()
     state = Voice2PoseTrainState(cfg, 8, "cuda")
@@ -288,7 +288,7 @@ def test_eval_step_launches_mel_conv1_stem_once_each(cuda, batch):
     from speechdrivestemplates_tpu_torch.config import sdt_bp
     from speechdrivestemplates_tpu_torch.pipelines.voice2pose import (Voice2PoseTrainState,
                                                                      eval_step)
-    from speechdrivestemplates_tpu_torch.profile_train import train_batch
+    from speechdrivestemplates_tpu_torch.datasets.synthetic import train_batch
 
     cfg = sdt_bp()
     state = Voice2PoseTrainState(cfg, 8, "cuda")
@@ -334,7 +334,7 @@ def _device_cache(cfg, n, pipeline):
     """A device-resident train set of ``n`` random clips in the loader's form,
     the keys ``pipeline``'s pipeline stages (those the batch has)."""
     from speechdrivestemplates_tpu_torch.pipelines.trainer import PIPELINES
-    from speechdrivestemplates_tpu_torch.profile_train import train_batch
+    from speechdrivestemplates_tpu_torch.datasets.synthetic import train_batch
 
     batch = train_batch(cfg, n, n, "cuda", seed=3)
     return {k: batch[k] for k in PIPELINES[cfg.PIPELINE_TYPE].device_keys if k in batch}

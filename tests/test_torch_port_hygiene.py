@@ -71,7 +71,6 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys; import speechdrivestemplates_tpu_torch.serving, "
             "speechdrivestemplates_tpu_torch.ops.stem, "
             "speechdrivestemplates_tpu_torch.profile_kernels, "
-            "speechdrivestemplates_tpu_torch.profile_train, "
             "speechdrivestemplates_tpu_torch.main, "
             "speechdrivestemplates_tpu_torch.chain_e2e, "
             "speechdrivestemplates_tpu_torch.datasets.synthetic, "
@@ -85,10 +84,18 @@ def test_importing_the_port_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_one_module_constructs_and_captures_cuda_graphs():
+    """The capture protocol lives in one module: no other file of the port
+    builds a ``CUDAGraph`` or enters ``torch.cuda.graph``."""
+    found = {str(f.relative_to(ROOT)) for f in sorted(PORT.rglob("*.py"))
+             if any(pat in f.read_text() for pat in ("CUDAGraph(", "torch.cuda.graph("))}
+    assert found == {"speechdrivestemplates_tpu_torch/pipelines/graphed.py"}, found
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked_for(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry points run on it")
-    from speechdrivestemplates_tpu_torch import main, profile_kernels, profile_train, serving
+    from speechdrivestemplates_tpu_torch import main, profile_kernels, serving
     from speechdrivestemplates_tpu_torch.config import sdt_bp
     from speechdrivestemplates_tpu_torch.models import build_model
 
@@ -105,8 +112,6 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(tmp_path):
     for probe in ([], ["--conv1-probe"], ["--shift-probe", "--probe-c", "64"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             profile_kernels.main(probe)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        profile_train.main([])
     # training: the card unless --device cpu, before anything is read or written
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main.main(["DATASET.ROOT_DIR", str(tmp_path / "none"),

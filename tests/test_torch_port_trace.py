@@ -125,7 +125,7 @@ def test_train_step_losses_are_bit_identical_with_tracing_on():
     (no ``final``: the train step has no serving output)."""
     from speechdrivestemplates_tpu_torch.pipelines.voice2pose import (Voice2PoseTrainState,
                                                                       train_step)
-    from speechdrivestemplates_tpu_torch.profile_train import train_batch
+    from speechdrivestemplates_tpu_torch.datasets.synthetic import train_batch
 
     cfg = apply_overrides(sdt_bp(precision="fp32"), ["TRAIN.BATCH_SIZE", "2"])
     batch = train_batch(cfg, 2, 4, "cpu", seed=3)
@@ -263,7 +263,7 @@ def test_capture_with_tracing_on_replays_bit_for_bit(cuda):
     sections inside the capture are flagged and carry no marker; the runner's
     own spans carry one."""
     from speechdrivestemplates_tpu_torch.pipelines.voice2pose import DEVICE_KEYS
-    from speechdrivestemplates_tpu_torch.profile_train import train_batch
+    from speechdrivestemplates_tpu_torch.datasets.synthetic import train_batch
 
     cfg = apply_overrides(sdt_bp(), ["TRAIN.BATCH_SIZE", "2", "TRAIN.STEPS_PER_DISPATCH", "2"])
     batch = train_batch(cfg, 8, 8, "cuda", seed=3)
