@@ -89,11 +89,12 @@ Phases, each of which must pass or the script exits non-zero:
               the mel counter reads 1, 2, 3, bn_act's 24, 48, 72 (one launch a BN
               layer), conv1's and the stem's stay at 0 (the BN encoder takes no
               InstanceNorm kernel); B = 128 held to an fp32 plain forward (rel L2 <
-              0.05, corr > 0.999) and timed; the bn_act kernel at s2g's 24 layer shapes
-              at B = 128 in bf16 against the plain path (BN in eval mode, lrelu, cast:
-              within 1 ulp, the share of elements bit for bit reported), its ms over the
-              24 layers beside the plain path's, F.batch_norm + F.leaky_relu's and the
-              bound; (b) training at B = 32
+              0.05, corr > 0.999) and timed; bn_act's launches by layout (8 a request
+              channels-last, 16 contiguous); the bn_act kernel at s2g's 24 layer
+              shapes at B = 128 in bf16 (the 2-D ones channels-last) against the plain
+              path (BN in eval mode, lrelu, cast: within 1 ulp, the share of elements
+              bit for bit reported), its ms over the 24 layers beside the plain path's,
+              F.batch_norm + F.leaky_relu's and the bound; (b) training at B = 32
               on phase 10's speaker: one step launches mel once, conv1 and the stem
               never; against an fp32 all-plain step at the same weights G_reg_loss and
               D_pose_gan_loss within 2%, D's gradient at cosine >= 0.99 and G's at
@@ -2070,6 +2071,10 @@ def main() -> None:
     check(s_growth == {"mel": [1, 2, 3], "conv1": [0, 0, 0], "stem": [0, 0, 0],
                        "bn_act": [24, 48, 72], "in_act": [0, 0, 0]},
           f"s2g serving launches per request: {s_growth}")
+    # the 2-D encoder's 8 BN layers channels-last, the 16 1-D ones contiguous
+    check(dict(kernels.LAYOUTS) == {("bn_act", "channels_last"): 24,
+                                    ("bn_act", "contiguous"): 48},
+          f"s2g serving bn_act launches by layout over 3 requests: {dict(kernels.LAYOUTS)}")
     report["mel"]["launches"] += 3
     report["bn_act"]["launches"] += 72
     audio = requests[-1]
@@ -2107,8 +2112,10 @@ def main() -> None:
     acts = []
     for bn, sh in zip(bns, bn_shapes):
         per = (-1,) + (1,) * (len(sh) - 1)
-        acts.append((torch.randn((128, *sh), generator=g16, device=dev)
-                     * bn.running_var.sqrt().view(per) + bn.running_mean.view(per)).to(bf))
+        x = (torch.randn((128, *sh), generator=g16, device=dev)
+             * bn.running_var.sqrt().view(per) + bn.running_mean.view(per)).to(bf)
+        # the 2-D layers channels-last, as the serving call hands them
+        acts.append(x.contiguous(memory_format=torch.channels_last) if x.ndim == 4 else x)
     bn_ulps, bn_exact, bn_err = 0, 0, 0.0
     with torch.no_grad():
         for bn, x in zip(bns, acts):

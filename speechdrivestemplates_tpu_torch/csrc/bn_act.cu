@@ -6,7 +6,7 @@
 // F.leaky_relu, .to(dtype)) runs them as separate fp32 elementwise passes: a cast up, four
 // broadcast passes, the lrelu and a cast down, each reading and writing the whole activation.
 //
-// What it computes, for a contiguous (B, C, S) activation (S = H x W, or T) in bf16 or fp32
+// What it computes, for a (B, C, H, W) or (B, C, T) activation in bf16 or fp32
 // and the layer's four fp32 vectors:
 //   y = cast(lrelu(((x - mean_c) * rstd_c) * w_c + b_c)),   rstd_c = rsqrtf(var_c + 1e-5)
 // each step one fp32 operation rounded where the plain path rounds it (subtract, multiply,
@@ -22,13 +22,21 @@
 // Design: one launch a layer over the flattened tensor, of under 2^31 elements (s2g's
 // largest, layer 0 at B = 128, holds 2.8e8), so that indices are 32-bit. A thread owns UNROLL vectors of VEC
 // adjacent elements (16 bytes: 8 bf16 or 4 fp32), THREADS vectors apart, all loaded before any
-// is computed; a warp reads 512 contiguous bytes a load. The channel of element e is
-// (e / S) mod C: a vector finds its first element's row by a multiply-high division by S (and
-// the channel by one by C) and steps to the next channel where a row ends inside it, so every
-// S works (10 x 53 = 530, 5 x 51 = 255, T = 2) without padding. rstd is computed where a
-// channel is first used, from L1-cached loads. A pointer that is not 16-byte aligned takes
-// VEC = 1; the last partial vector is done element by element. No shared memory, no
-// synchronisation, no allocation: the launch is safe to capture in a CUDA graph.
+// is computed; a warp reads 512 contiguous bytes a load. The caller hands the activation as a
+// dense (N, C, S) slab, the channel of element e being (e / S) mod C: an NCHW or (B, C, T)
+// tensor as itself (S = H x W, or T), a channels-last (B, C, H, W) one as (B x H x W, C, 1),
+// which cuDNN reads and writes without a transpose. Two routes, one template:
+//  - PLANES: a vector finds its first element's row by a multiply-high division by S (and the
+//    channel by one by C) and steps to the next channel where a row ends inside it, so every S
+//    works (10 x 53 = 530, 5 x 51 = 255, T = 2, and S = 1 at any C) without padding; rstd is
+//    computed where a channel is first used, from L1-cached loads.
+//  - CHANNELS_INNER: S = 1 and C divides a thread's step THREADS x VEC (C = 64, 128, 256: the
+//    2-D encoder channels-last): element e's channel is e mod C, the same for a thread's VEC
+//    lanes at every unrolled step, so the thread loads its VEC channels' (mean, rstd, w, b)
+//    into registers once and no element steps channels.
+// A pointer that is not 16-byte aligned takes VEC = 1; the last partial vector is done element
+// by element. No shared memory, no synchronisation, no allocation: the launch is safe to
+// capture in a CUDA graph.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -85,11 +93,13 @@ struct Params {
   }
 };
 
+enum Route { PLANES, CHANNELS_INNER };
+
 // what a thread loads and stores at once: 16 bytes, or one element
 template <typename T, int VEC> struct VecOf { typedef uint4 type; };
 template <typename T> struct VecOf<T, 1> { typedef T type; };
 
-template <typename T, int VEC>
+template <typename T, int VEC, Route ROUTE>
 __global__ void __launch_bounds__(THREADS)
 bn_act_kernel(const T* __restrict__ x, T* __restrict__ y, const Params p) {
   typedef typename VecOf<T, VEC>::type V;
@@ -104,28 +114,47 @@ bn_act_kernel(const T* __restrict__ x, T* __restrict__ y, const Params p) {
     const uint32_t k = first + u * THREADS;
     if (k < full) in[u] = xv[k];
   }
+  if constexpr (ROUTE == CHANNELS_INNER) {
+    // every vector of this thread starts at channel (threadIdx.x x VEC) mod C
+    Channel ch[VEC];
+    const uint32_t c0 = (threadIdx.x * VEC) % p.C;
 #pragma unroll
-  for (int u = 0; u < UNROLL; ++u) {
-    const uint32_t k = first + u * THREADS;
-    if (k >= full) break;
-    const uint32_t e = k * VEC;
-    const uint32_t row = p.div_s.div(e);
-    uint32_t c = row - p.div_c.div(row) * p.C;
-    uint32_t next = (row + 1) * p.S;  // the first element of the next row
-    Channel ch = p.channel(c);
-    const T* a = reinterpret_cast<const T*>(&in[u]);
-    V out;
-    T* o = reinterpret_cast<T*>(&out);
+    for (int i = 0; i < VEC; ++i) ch[i] = p.channel((c0 + i) % p.C);
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      if (e + i == next) {
-        c = c + 1 == p.C ? 0 : c + 1;
-        next += p.S;
-        ch = p.channel(c);
-      }
-      o[i] = from_f32<T>(p.apply(to_f32(a[i]), ch));
+    for (int u = 0; u < UNROLL; ++u) {
+      const uint32_t k = first + u * THREADS;
+      if (k >= full) break;
+      const T* a = reinterpret_cast<const T*>(&in[u]);
+      V out;
+      T* o = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) o[i] = from_f32<T>(p.apply(to_f32(a[i]), ch[i]));
+      yv[k] = out;
     }
-    yv[k] = out;
+  } else {
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const uint32_t k = first + u * THREADS;
+      if (k >= full) break;
+      const uint32_t e = k * VEC;
+      const uint32_t row = p.div_s.div(e);
+      uint32_t c = row - p.div_c.div(row) * p.C;
+      uint32_t next = (row + 1) * p.S;  // the first element of the next row
+      Channel ch = p.channel(c);
+      const T* a = reinterpret_cast<const T*>(&in[u]);
+      V out;
+      T* o = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        if (e + i == next) {
+          c = c + 1 == p.C ? 0 : c + 1;
+          next += p.S;
+          ch = p.channel(c);
+        }
+        o[i] = from_f32<T>(p.apply(to_f32(a[i]), ch));
+      }
+      yv[k] = out;
+    }
   }
   // the last n mod VEC elements, one a thread of the first block
   const uint32_t e = full * VEC + threadIdx.x;
@@ -135,26 +164,33 @@ bn_act_kernel(const T* __restrict__ x, T* __restrict__ y, const Params p) {
   }
 }
 
+template <typename T, int VEC>
+void launch_route(const T* x, T* y, const Params& p, cudaStream_t stream) {
+  const uint32_t per_block = THREADS * UNROLL;
+  const uint32_t blocks = (p.n / VEC + per_block - 1) / per_block;
+  const dim3 grid(blocks > 0 ? blocks : 1);
+  if (p.S == 1 && (THREADS * VEC) % p.C == 0)
+    bn_act_kernel<T, VEC, CHANNELS_INNER><<<grid, THREADS, 0, stream>>>(x, y, p);
+  else
+    bn_act_kernel<T, VEC, PLANES><<<grid, THREADS, 0, stream>>>(x, y, p);
+}
+
 template <typename T>
 cudaError_t launch(const T* x, T* y, const Params& p, cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(T);
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16) == 0;
-  const uint32_t vec = aligned ? VEC : 1;
-  const uint32_t per_block = THREADS * UNROLL;
-  const uint32_t blocks = (p.n / vec + per_block - 1) / per_block;
-  const dim3 grid(blocks > 0 ? blocks : 1);
   if (aligned)
-    bn_act_kernel<T, VEC><<<grid, THREADS, 0, stream>>>(x, y, p);
+    launch_route<T, 16 / sizeof(T)>(x, y, p, stream);
   else
-    bn_act_kernel<T, 1><<<grid, THREADS, 0, stream>>>(x, y, p);
+    launch_route<T, 1>(x, y, p, stream);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x, y: (B, C, S) contiguous, bf16 (is_bf16) or fp32, under 2^31 elements; mean, var, w, b:
-// C fp32 each. Returns the launch error, cudaErrorInvalidValue for a shape it does not take.
+// x, y: a dense (B, C, S) slab, bf16 (is_bf16) or fp32, under 2^31 elements, the channel of
+// element e being (e / S) mod C (a channels-last (B, C, H, W) as (B x H x W, C, 1)); mean, var,
+// w, b: C fp32 each. Returns the launch error, cudaErrorInvalidValue for a shape it does not take.
 extern "C" int sdt_bn_act_forward(const void* x, void* y, const float* mean, const float* var,
                                   const float* w, const float* b, int is_bf16, int B, int C,
                                   int S, float slope, void* stream) {

@@ -20,7 +20,9 @@ launched it (one right where it launches, nowhere else; a fake call, as
 captures a CUDA graph is recorded, not run: the graph runner
 (``pipelines/graphed.py``) adds those to ``CAPTURED``, and each replay adds
 the graph's captured launches to ``REPLAYED``. ``executions()`` counts the
-kernels that ran: ``LAUNCHES - CAPTURED + REPLAYED``.
+kernels that ran: ``LAUNCHES - CAPTURED + REPLAYED``. ``LAYOUTS`` counts the
+same launches of a kernel that reads more than one layout by the layout it
+was handed, ``LAYOUTS["bn_act", "channels_last"]`` and so on.
 
 The kernels are forward-only, as the JAX package's Pallas kernels are: they
 write through raw pointers, and the ops have no autograd formula. Each
@@ -62,12 +64,13 @@ DEVICE_TYPES = ("cuda", "meta")
 LAUNCHES: collections.Counter = collections.Counter()
 CAPTURED: collections.Counter = collections.Counter()
 REPLAYED: collections.Counter = collections.Counter()
+LAYOUTS: collections.Counter = collections.Counter()
 _libs: dict = {}
 _lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for c in (LAUNCHES, CAPTURED, REPLAYED):
+    for c in (LAUNCHES, CAPTURED, REPLAYED, LAYOUTS):
         c.clear()
 
 

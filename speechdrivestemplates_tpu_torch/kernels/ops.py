@@ -5,7 +5,8 @@
     sdt::stem(y1, w2t, w3t, slope)               (B, 82, W1, 64) -> (B, 40, W2, 128), y1's dtype
     sdt::shift_taps(x, w, m_out, subtile)        (N, M, C) bf16 -> (N, m_out, C) bf16
     sdt::bn_act(x, running_mean, running_var, weight, bias, slope)
-                                                 (B, C, ...) dtype -> the same shape, dtype
+                                                 (B, C, ...) dtype -> the same shape, dtype,
+                                                 and strides where channels-last
     sdt::in_act(x, slope)                        (B, C, H, W) or (B, C, T) dtype -> the same
                                                  shape and strides, dtype
     sdt::in_act_stats(x, slope)                  in_act's output, and the fp32 mean and
@@ -28,8 +29,9 @@ vectors), so that an exported graph carries them as constants. The wrappers
 in ``ops/`` check their inputs and call ``torch.ops.sdt.*``; the
 implementations take the dense layout the kernels read (``contiguous()``,
 free where the wrapper made it so, and a copy where a graph hands them
-another). The ops have no autograd formula: the wrappers refuse an input
-that requires grad first.
+another; ``bn_act`` and ``in_act`` also read a channels-last activation as it
+is, and give theirs in the same layout). The ops have no autograd formula:
+the wrappers refuse an input that requires grad first.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import math
 
 import torch
 
-from . import LAUNCHES, check, current_stream, library
+from . import LAUNCHES, LAYOUTS, check, current_stream, library
 
 N_MELS = 80
 HOP_LENGTH = 160
@@ -155,24 +157,47 @@ def _(x, w, m_out, subtile):
     return x.new_empty((N, m_out, C), dtype=torch.bfloat16)
 
 
+def bn_act_slab(x: torch.Tensor):
+    """``(N, C, S)``: ``x`` as the dense slab the BN kernel reads, the channel
+    of element e being (e / S) mod C: a channels-last (B, C, H, W) as (B x H x
+    W, C, 1), a contiguous (B, C, ...) as (B, C, the rest's product). None for
+    another layout."""
+    if x.ndim == 4 and x.is_contiguous(memory_format=torch.channels_last):
+        B, C, H, W = x.shape
+        return B * H * W, C, 1
+    if x.is_contiguous():
+        return x.shape[0], x.shape[1], math.prod(x.shape[2:])
+    return None
+
+
+def bn_act_layout(x: torch.Tensor) -> str:
+    """The key ``bn_act`` counts a call under in ``LAYOUTS``: the layout it
+    was handed."""
+    if x.ndim == 4 and x.is_contiguous(memory_format=torch.channels_last):
+        return "channels_last"
+    return "contiguous" if x.is_contiguous() else "strided"  # strided: copied first
+
+
 @torch.library.impl("sdt::bn_act", "CUDA", lib=LIB)
 def bn_act(x, running_mean, running_var, weight, bias, slope):
-    x = x.contiguous()
+    layout = bn_act_layout(x)
+    if bn_act_slab(x) is None:
+        x = x.contiguous()
+    N, C, S = bn_act_slab(x)
     vecs = [t.contiguous() for t in (running_mean, running_var, weight, bias)]
-    B, C = x.shape[:2]
-    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)  # x's strides
     err = library("bn_act").sdt_bn_act_forward(
         x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in vecs),
-        int(x.dtype == torch.bfloat16), B, C, math.prod(x.shape[2:]), float(slope),
-        current_stream(x.device))
+        int(x.dtype == torch.bfloat16), N, C, S, float(slope), current_stream(x.device))
     LAUNCHES["bn_act"] += 1
+    LAYOUTS["bn_act", layout] += 1
     check(err, "sdt_bn_act_forward")
     return out
 
 
 @torch.library.register_fake("sdt::bn_act", lib=LIB)
 def _(x, running_mean, running_var, weight, bias, slope):
-    return x.new_empty(x.shape)
+    return torch.empty_like(x) if bn_act_slab(x) is not None else x.new_empty(x.shape)
 
 
 def in_act_slab(x: torch.Tensor):

@@ -40,6 +40,9 @@ class AudioEncoder(nn.Module):
     in every mode and on every device: the stem kernels compute InstanceNorm,
     and the JAX package gives its Pallas stem IN encoders only. Each BN layer
     applies its norm by the bn_act kernel on the same terms (``ConvNormRelu``).
+    Off the CPU the BN encoder runs channels-last from its input on, in every
+    mode and with ``plain`` too, so that the plain path (a reference) and the
+    kernels' route run the same convolutions.
     """
 
     def __init__(self, norm: str = "IN", leaky: bool = True,
@@ -65,7 +68,14 @@ class AudioEncoder(nn.Module):
         """mel (B, 80, T_mel) -> (B, 256, num_frames)."""
         layers = self.layers()
         if self.norm == "BN":
-            x = mel[:, None]
+            # (B, 1, 80, T_mel). Off the CPU a channels-last view: cuDNN's bf16
+            # engines compute in NHWC, so every conv then reads and writes NHWC
+            # and no layer transposes in or out (each layer's output, bn_act's
+            # too, keeps its input's layout). The CPU keeps NCHW.
+            if mel.device.type == "cpu":
+                x = mel[:, None]
+            else:
+                x = mel.unsqueeze(-1).permute(0, 3, 1, 2)
         else:
             stem = (stem_ops.stem_plain if plain or self.training
                     else stem_ops.audio_encoder_stem)

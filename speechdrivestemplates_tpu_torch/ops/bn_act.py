@@ -48,7 +48,8 @@ def bn_act_plain(y: torch.Tensor, norm, slope: float) -> torch.Tensor:
 
 def bn_act_kernel(y: torch.Tensor, norm, slope: float) -> torch.Tensor:
     """``norm``'s eval-mode affine of ``y``, lrelu and the cast, by the kernel;
-    the output has ``y``'s shape and dtype."""
+    the output has ``y``'s shape and dtype, and its strides where ``y`` is
+    channels-last or contiguous (another layout is copied first)."""
     kernels.refuse_grad("sdt::bn_act", y, norm.weight, norm.bias)
     if y.device.type not in kernels.DEVICE_TYPES:
         raise ValueError(f"bn_act_kernel takes a CUDA tensor, got {y.device}")

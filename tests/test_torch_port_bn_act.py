@@ -158,9 +158,73 @@ def test_the_fake_gives_the_inputs_shape_on_fake_cuda_tensors(shape, dtype):
         x = torch.empty(shape, dtype=dtype, device="cuda")
         vecs = [torch.empty(shape[1], device="cuda") for _ in range(4)]
         out = torch.ops.sdt.bn_act(x, *vecs, 0.2)
+        if len(shape) == 4:  # a channels-last activation keeps its strides
+            x_cl = x.to(memory_format=torch.channels_last)
+            out_cl = torch.ops.sdt.bn_act(x_cl, *vecs, 0.2)
+            assert out_cl.stride() == x_cl.stride() != x.stride()
+            assert out_cl.is_contiguous(memory_format=torch.channels_last)
     assert out.device.type == "cuda"
     assert (tuple(out.shape), out.dtype) == (shape, dtype)
-    assert not kernels.LAUNCHES
+    assert out.is_contiguous()
+    assert not kernels.LAUNCHES and not kernels.LAYOUTS
+
+
+# (activation, its (N, C, S) slab, the layout bn_act counts it under)
+SLABS = {
+    "channels_last_2d": (lambda: torch.empty(2, 64, 5, 7).to(memory_format=torch.channels_last),
+                         (70, 64, 1), "channels_last"),
+    "contiguous_2d": (lambda: torch.empty(2, 64, 5, 7), (2, 64, 35), "contiguous"),
+    "contiguous_1d": (lambda: torch.empty(2, 256, 16), (2, 256, 16), "contiguous"),
+    "transposed_2d": (lambda: torch.empty(2, 64, 7, 5).transpose(2, 3), None, "strided"),
+}
+
+
+@pytest.mark.parametrize("name", list(SLABS))
+def test_the_launcher_reads_each_layout_as_a_dense_slab(name):
+    """The launcher hands the kernel a channels-last (B, C, H, W) as the (B x
+    H x W, C, 1) slab, the channel innermost, and a contiguous activation as
+    (B, C, the rest); another layout has no slab, and is copied to a
+    contiguous tensor first, whose output the fake gives contiguous."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from speechdrivestemplates_tpu_torch.kernels import ops
+
+    make, slab, layout = SLABS[name]
+    x = make()
+    assert ops.bn_act_slab(x) == slab and ops.bn_act_layout(x) == layout
+    if slab is None:
+        assert ops.bn_act_slab(x.contiguous()) == (2, 64, 35)
+    with FakeTensorMode():
+        fx = torch.empty_strided(x.shape, x.stride(), device="cuda")
+        out = torch.ops.sdt.bn_act(fx, *[torch.empty(x.shape[1], device="cuda")
+                                         for _ in range(4)], 0.2)
+    assert out.stride() == (x.stride() if slab is not None else x.contiguous().stride())
+
+
+@pytest.mark.parametrize("dev", ["cpu", "meta"])
+def test_the_bn_audio_encoder_hands_layer_0_nchw_on_the_cpu_only(dev):
+    """A BN ``AudioEncoder`` hands its first layer ``mel[:, None]`` on the CPU,
+    whose convolutions (and the JAX-parity tests) keep NCHW; off the CPU (a
+    meta tensor stands for the card) it hands a channels-last view of the
+    same mel, strides (80 T, 1, T, 1), so that cuDNN computes every layer in
+    NHWC without a transpose."""
+    from speechdrivestemplates_tpu_torch.models.generator import AudioEncoder
+
+    enc = AudioEncoder("BN").eval().to(dev)
+    seen = []
+    enc.layers()[0].register_forward_hook(lambda m, args, out: seen.append(args[0]))
+    mel = torch.randn(2, 80, 33, device=dev) if dev == "cpu" else \
+        torch.empty(2, 80, 33, device=dev)
+    with torch.no_grad():
+        out = enc(mel, 4)
+    (x,) = seen
+    assert tuple(x.shape) == (2, 1, 80, 33) and tuple(out.shape) == (2, 256, 4)
+    if dev == "cpu":
+        assert x.stride() == mel[:, None].stride() == (2640, 2640, 33, 1)
+        assert torch.equal(x, mel[:, None])
+    else:
+        assert x.stride() == (2640, 1, 33, 1)
+        assert x.is_contiguous(memory_format=torch.channels_last)
 
 
 def test_s2g_serving_export_reads_each_bn_layers_vectors_as_inputs():

@@ -784,16 +784,20 @@ def _bn_layer(c, rng):
     return bn.requires_grad_(False)
 
 
-def _conv_like(seed, shape, bn, dtype, misaligned=False):
+def _conv_like(seed, shape, bn, dtype, misaligned=False, channel_dim=1):
     """An activation around the layer's running statistics (sd 1 about each
     channel's mean, the first element of each row exactly at it), in
-    ``dtype``; ``misaligned`` puts its first element 2 or 4 bytes past a
-    16-byte boundary."""
-    per_channel = (-1,) + (1,) * (len(shape) - 2)
+    ``dtype``, its channels on axis ``channel_dim``; ``misaligned`` puts its
+    first element 2 or 4 bytes past a 16-byte boundary."""
+    per_channel = [1] * len(shape)
+    per_channel[channel_dim] = -1
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(shape, generator=g, device="cuda") * bn.running_var.sqrt().view(per_channel) \
         + bn.running_mean.view(per_channel)
-    x[..., 0] = bn.running_mean.view(per_channel[:-1])
+    if channel_dim == len(shape) - 1:  # the first position of each row at the mean
+        x[..., 0, :] = bn.running_mean
+    else:
+        x[..., 0] = bn.running_mean.view(per_channel[:-1])
     x = x.to(dtype)
     if misaligned:
         buf = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
@@ -803,36 +807,99 @@ def _conv_like(seed, shape, bn, dtype, misaligned=False):
     return x
 
 
+# (shape, layout): every shape contiguous, as the 1-D layers and the CPU hand it; the 2-D
+# encoder's shapes also channels-last, as its convolutions give them on the card (a thread's
+# channels fixed: C divides 2,048), and channels-last odd cases: C = 96 (no such C: the
+# planes route at S = 1), C = 4 < VEC, and a view 2 or 4 bytes off a 16-byte boundary
+BN_ACT_CASES = (
+    [((128, *S2G_BN_2D[0]), "contiguous")] + [((2, *s), "contiguous") for s in S2G_BN_2D]
+    + [((2, 256, t), "contiguous") for t in (2, 4, 8, 16, 32, 64)]
+    + [("misaligned", "contiguous"), ("relu", "contiguous")]
+    + [((128, *S2G_BN_2D[0]), "channels_last")] + [((2, *s), "channels_last") for s in S2G_BN_2D]
+    + [((2, 96, 7, 9), "channels_last"), ((3, 4, 5, 7), "channels_last"),
+       ("misaligned", "channels_last")])
+
+
+def _bn_act_case_id(case):
+    shape, layout = case
+    name = "x".join(map(str, shape)) if isinstance(shape, tuple) else shape
+    return name if layout == "contiguous" else f"{name}-{layout}"
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("shape", [(128, *S2G_BN_2D[0])] + [(2, *s) for s in S2G_BN_2D]
-                         + [(2, 256, t) for t in (2, 4, 8, 16, 32, 64)] + ["misaligned", "relu"],
-                         ids=lambda s: "x".join(map(str, s)) if isinstance(s, tuple) else s)
-def test_bn_act_matches_the_plain_path_within_an_ulp(cuda, shape, dtype):
+@pytest.mark.parametrize("case", BN_ACT_CASES, ids=_bn_act_case_id)
+def test_bn_act_matches_the_plain_path_within_an_ulp(cuda, case, dtype):
     """``sdt::bn_act`` against the plain path (``BatchNorm`` in eval mode, leaky
     ReLU, the cast back) at s2g's layer shapes, layer 0 at B = 2 and 128:
-    within 1 ulp of the compute dtype on every element, one launch. The kernel
-    applies the plain path's fp32 steps in its order, so it should read 0; the
-    fold into one scale and shift rounds otherwise, and a lower precision would
-    miss by many ulps. ``misaligned``: a (3, 256, 5, 51) view 2 or 4 bytes off
-    a 16-byte boundary takes the element-wise route; ``relu``: slope 0, as
-    the discriminator's layers take, at its second layer's (2, 512, 16)."""
+    within 1 ulp of the compute dtype on every element and bit for bit, one
+    launch, counted under the layout it was handed, the output in the input's
+    strides. The kernel applies the plain path's fp32 steps in its order; the
+    fold into one scale and shift rounds otherwise, and a lower precision
+    would miss by many ulps.
+    ``misaligned``: a (3, 256, 5, 51) view 2 or 4 bytes off a 16-byte
+    boundary takes the element-wise route; ``relu``: slope 0, as the
+    discriminator's layers take, at its second layer's (2, 512, 16)."""
     from speechdrivestemplates_tpu_torch import kernels
     from speechdrivestemplates_tpu_torch.ops import bn_act
 
+    shape, layout = case
     rng = np.random.RandomState(11)
     misaligned, slope = shape == "misaligned", 0.0 if shape == "relu" else 0.2
     shape = {"misaligned": (3, 256, 5, 51), "relu": (2, 512, 16)}.get(shape, shape)
     bn = _bn_layer(shape[1], rng)
-    x = _conv_like(11, shape, bn, dtype, misaligned)
-    before = kernels.LAUNCHES["bn_act"]
+    if layout == "channels_last":  # made as (B, H, W, C), viewed as (B, C, H, W)
+        B, C, H, W = shape
+        x = _conv_like(11, (B, H, W, C), bn, dtype, misaligned, channel_dim=3)
+        x = x.permute(0, 3, 1, 2)
+        assert x.is_contiguous(memory_format=torch.channels_last) and not x.is_contiguous()
+    else:
+        x = _conv_like(11, shape, bn, dtype, misaligned)
+    before = kernels.LAUNCHES["bn_act"], kernels.LAYOUTS["bn_act", layout]
     with torch.no_grad():
         got = bn_act.bn_act_kernel(x, bn, slope)
         want = bn_act.bn_act_plain(x, bn, slope)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["bn_act"] == before + 1
+    assert (kernels.LAUNCHES["bn_act"], kernels.LAYOUTS["bn_act", layout]) == \
+        (before[0] + 1, before[1] + 1)
     assert got.shape == want.shape == shape and got.dtype == want.dtype == dtype
+    assert got.stride() == x.stride()
     assert int(bn_act.ulp_distance(got, want).max()) <= 1
+    assert torch.equal(got, want)
     assert torch.isfinite(got.float()).all()
+
+
+def test_s2g_2d_bn_layers_run_channels_last_on_the_card(cuda):
+    """s2g's bf16 generator in eval mode at B = 4: each of the audio
+    encoder's 8 2-D BN layers takes and returns a channels-last tensor, on
+    the kernels' route and on the plain one, and a forward counts 8
+    channels-last bn_act launches and 16 contiguous ones (the 1-D layers)."""
+    from speechdrivestemplates_tpu_torch import config, kernels
+    from speechdrivestemplates_tpu_torch.models import build_model
+    from speechdrivestemplates_tpu_torch.ops import mel as M
+
+    model = build_model("SequenceGeneratorCNN", config.s2g(), device="cuda").eval()
+    seen = []
+
+    def hook(module, args, out):
+        seen.append((args[0].is_contiguous(memory_format=torch.channels_last),
+                     out.is_contiguous(memory_format=torch.channels_last), out.ndim))
+
+    layers = model.audio_encoder.layers()
+    handles = [m.register_forward_hook(hook) for m in layers]
+    mel = M.mel_spectrogram(_randn(np.random.RandomState(4), 4, 68267, scale=0.1))
+    try:
+        for plain in (False, True):
+            seen.clear()
+            kernels.reset_launch_counts()
+            with torch.no_grad():
+                model(mel, 64, None, plain=plain)
+            torch.cuda.synchronize()
+            assert seen == [(True, True, 4)] * 8, (plain, seen)
+            assert dict(kernels.LAYOUTS) == ({} if plain else {
+                ("bn_act", "channels_last"): 8, ("bn_act", "contiguous"): 16})
+    finally:
+        for h in handles:
+            h.remove()
 
 
 def test_s2g_serving_replay_equals_its_plain_bn_forward_bit_for_bit(cuda):
