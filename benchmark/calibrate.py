@@ -33,8 +33,8 @@ def half_batch_readings(d) -> list:
         b = {k: d.cache[k][idx] for k in ("audio", "poses", "clip_index")}
         full.append(b)
         half.append({k: v[: len(rows) // 2] for k, v in b.items()})
-    ref = correct.reference_steps(d.weights, d.bank0, full, d.model)
-    fault = correct.reference_steps(d.weights, d.bank0, half, d.model)
+    ref = d.mm.reference_steps(d.weights, d.bank0, full, d.model)
+    fault = d.mm.reference_steps(d.weights, d.bank0, half, d.model)
     return correct.train_numbers(fault, ref)
 
 

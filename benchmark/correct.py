@@ -1,6 +1,6 @@
 """How ``correct`` is decided: the port's outputs against the plain float32
-reference (``reference/``), each number beside its limit from
-``limits/<cell>.json``.
+reference (``reference/``, reached through the configuration's model module,
+``models/``), each number beside its limit from ``limits/<cell>.json``.
 
 Poses: ``pose_err`` is RMS(program - reference) / RMS(reference - the
 speaker's mean pose) over every compared frame, ``worst_clip_pose_err`` the
@@ -21,16 +21,12 @@ in fp8 e4m3 and their gradients in e5m2 (one scale a tensor): the precision
 below the configuration's bf16.
 """
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from .reference import generator as ref_gen
-from .reference import mel as ref_mel
-from .reference import no_tf32
 from .reference import pose as ref_pose
-from .reference import train as ref_train
 
 BLOCK = 32  # reference rows at a time
 
@@ -59,22 +55,6 @@ def fp8(t: torch.Tensor) -> torch.Tensor:
     return _Fp8.apply(t)
 
 
-def reference_poses(weights: Dict[str, torch.Tensor], audio: torch.Tensor,
-                    code: Optional[torch.Tensor], m: dict, stat: dict,
-                    num_frames: Optional[int] = None, quant: Optional[Callable] = None
-                    ) -> torch.Tensor:
-    """Pixel-space poses of the reference for (B, L) audio, in blocks of rows."""
-    out = []
-    with no_tf32(), torch.no_grad():
-        for a in range(0, audio.shape[0], BLOCK):
-            spec = ref_mel.mel_spectrogram(audio[a:a + BLOCK])
-            c = None if code is None else code[a:a + BLOCK]
-            pred = ref_gen.forward(weights, spec, num_frames or m["num_frames"], c, m["norm"],
-                                   m["leaky_slope"], m["num_landmarks"], quant)
-            out.append(ref_pose.final_poses(pred, stat, m["hierarchical_pose"]))
-    return torch.cat(out)
-
-
 def pose_numbers(pairs: List[Tuple[torch.Tensor, torch.Tensor]], m: dict, stat: dict
                  ) -> List[tuple]:
     """``pose_err`` and ``worst_clip_pose_err`` of (program, reference) pairs."""
@@ -90,33 +70,6 @@ def pose_numbers(pairs: List[Tuple[torch.Tensor, torch.Tensor]], m: dict, stat: 
         ref2 += float(r.sum())
         worst = max(worst, float((d / r).sqrt().max()))
     return [("pose_err", (err2 / ref2) ** 0.5), ("worst_clip_pose_err", worst)]
-
-
-def adam_first_grads(state) -> Dict[str, torch.Tensor]:
-    """Each leaf's gradient as the port's Adam got it at step 1: its first
-    moment over (1 - beta1) (no weight decay in the configurations); zero
-    where the optimizer holds no moment for it."""
-    pairs = [(name, p, state.opt_g) for name, p in state.generator.named_parameters()]
-    pairs.append(("clips_code", state.clips_code, state.opt_code))
-    out = {}
-    for name, p, opt in pairs:
-        m = opt.state.get(p, {}).get("exp_avg")
-        out[name] = (torch.zeros_like(p, dtype=torch.float32) if m is None
-                     else m.detach().float() / (1 - ref_train.BETAS[0]))
-    return out
-
-
-def changes(state, weights: Dict[str, torch.Tensor], bank0: torch.Tensor
-            ) -> Dict[str, torch.Tensor]:
-    out = {name: (p.detach().float() - weights[name]).clone()
-           for name, p in state.generator.named_parameters()}
-    out["clips_code"] = (state.clips_code.detach().float() - bank0).clone()
-    return out
-
-
-def reference_steps(weights, bank, batches, m: dict, quant: Optional[Callable] = None) -> dict:
-    with no_tf32():
-        return ref_train.run_steps(weights, bank, batches, m, quant)
 
 
 def _leaf_gaps(prog: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor], keep,

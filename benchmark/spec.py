@@ -1,11 +1,12 @@
 """``BENCHMARK.json``: its contract checked, and each name found as a file.
 
-A configuration is ``configs/<config>.json``, a traffic mix
-``traffic/<traffic>.json`` (parameters of one of the generator's kinds, see
-``drivers.py``), a per-layer metric ``layer_metrics/<metric>.py`` (a reader,
-``read(ctx)``), and the limits of a cell's correctness check
-``limits/<cell>.json``, all beside this file. A new cell, mix, configuration
-or metric is new files and entries only.
+A configuration is ``configs/<config>.json``, whose model is
+``models/<model_module>.py`` (``sequence_generator_cnn`` where the file names
+none), a traffic mix ``traffic/<traffic>.json`` (the parameters of a kind,
+``kinds/<kind>.py``), a per-layer metric ``layer_metrics/<metric>.py`` (a
+reader, ``read(ctx)``), and the limits of a cell's correctness check
+``limits/<cell>.json``, all beside this file. A new cell, mix, kind,
+configuration, model or metric is new files and entries only.
 """
 
 import json
@@ -22,6 +23,7 @@ CELL_KEYS = {"name", "config", "traffic", "chips", "why"}
 E2E_KEYS = {"name", "unit", "better", "bound", "source"}
 LAYER_KEYS = {"name", "unit", "better", "source", "layer", "moves"}
 SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
+DEFAULT_MODEL = "sequence_generator_cnn"
 
 
 class SpecError(ValueError):
@@ -80,6 +82,11 @@ def validate(spec: dict, root: str) -> None:
         _need(c["file"] not in files, f"config {c['name']}: file shared with another")
         files.add(c["file"])
         _need(os.path.isfile(os.path.join(root, c["file"])), f"config file {c['file']} missing")
+        with open(os.path.join(root, c["file"])) as f:
+            module = model_name(json.load(f))
+        _need(isinstance(module, str) and module.isidentifier()
+              and os.path.isfile(model_path(module)),
+              f"config {c['name']}: model module {module!r} is not a file models/<name>.py")
         _need(isinstance(c["reduced"], list) and len(c["reduced"]) <= 16,
               f"config {c['name']}: reduced has at most 16 keys")
         for k in c["reduced"]:
@@ -100,6 +107,10 @@ def validate(spec: dict, root: str) -> None:
               f"cell {w['name']}: configuration and traffic already paired")
         pairs.add((w["config"], w["traffic"]))
         _need(os.path.isfile(traffic_path(w["traffic"])), f"traffic file of {w['traffic']} missing")
+        with open(traffic_path(w["traffic"])) as f:
+            kind = json.load(f).get("kind")
+        _need(isinstance(kind, str) and kind.isidentifier() and os.path.isfile(kind_path(kind)),
+              f"traffic {w['traffic']}: kind {kind!r} is not a file kinds/<kind>.py")
         _need(os.path.isfile(limits_path(w["name"])), f"limits file of {w['name']} missing")
     _need(sum(w["chips"] == 4 for w in cells) <= max(1, len(cells) // 4),
           "too many four-chip cells")
@@ -156,6 +167,19 @@ def limits_path(cell: str) -> str:
 
 def metric_path(name: str) -> str:
     return os.path.join(HERE, "layer_metrics", f"{name}.py")
+
+
+def kind_path(kind: str) -> str:
+    return os.path.join(HERE, "kinds", f"{kind}.py")
+
+
+def model_path(module: str) -> str:
+    return os.path.join(HERE, "models", f"{module}.py")
+
+
+def model_name(conf: dict) -> str:
+    """The model module a configuration file names, or the default."""
+    return conf.get("model_module", DEFAULT_MODEL)
 
 
 def load(root: str) -> dict:

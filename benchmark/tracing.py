@@ -4,10 +4,9 @@ kernel rows by name, device busy time, and the breakdown of a traced run.
 Spans are the benchmark's own, around each call into a layer of the port:
 ``(name, start_ns, end_ns, request)`` on the host's clock, with the offset to
 the Unix clock that the profiler's events carry. The profiler traces the
-card's activity only (``ProfilerActivity.CUDA``), as ``profile_train.py``
-does; busy time is the union of the kernels', copies' and sets' intervals
-inside the traced window, whose length the host clock gives around two
-synchronizations."""
+card's activity only (``ProfilerActivity.CUDA``); busy time is the union of
+the kernels', copies' and sets' intervals inside the traced window, whose
+length the host clock gives around two synchronizations."""
 
 import json
 import os
@@ -25,7 +24,7 @@ PORT_KERNELS = {"mel_kernel": "B1 mel", "conv1_gram_kernel": "B3 conv1+IN1",
                 "conv_in_kernel": "B2 stem", "finalize_kernel": "B2 stem",
                 "apply_kernel": "B2 stem"}
 _PORT = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+)")
-# profile_train.py's kinds: name fragments, first match wins
+# the breakdown's kinds of library kernels: name fragments, first match wins
 KINDS = (("dgrad", "cuDNN conv backward, data"), ("wgrad", "cuDNN conv backward, weights"),
          ("fprop", "cuDNN conv forward"), ("multi_tensor_apply", "Adam updates"),
          ("Memcpy", "copies"), ("Memset", "memsets"))

@@ -2,19 +2,21 @@
 large draws from a ``torch.Generator`` on the card.
 
 Weights are handed to the port and to the reference alike, keyed by the
-reference repository's parameter names (``reference.generator.leaves``).
-Convolutions are Kaiming-normal (fan-in, gain sqrt 2), as the published model
+reference's parameter names: a configuration's model module
+(``models/<name>.py``) lists them as ``leaves(model)``, each with a kind, and
+maps each kind to its init (``INIT``). Every leaf is cut, in order, from one
+standard-normal draw of the seed's ``weights`` stream and scaled by its
+kind's init. ``INIT`` below holds the kinds of the published models:
+convolutions are Kaiming-normal (fan-in, gain sqrt 2), as the published model
 initializes them; the output 1x1 is LeCun-normal with a small seeded bias; a
 BN layer's scale, shift and running statistics are seeded near (1, 0, 0, 1).
 """
 
 import math
-from typing import Dict
+from typing import Callable, Dict
 
 import numpy as np
 import torch
-
-from .reference import generator as ref_gen
 
 
 def seed_stream(seed: int, tag: str) -> int:
@@ -28,9 +30,27 @@ def device_generator(seed: int, tag: str, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed_stream(seed, tag))
 
 
-def generator_weights(model: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """Every generator parameter and buffer of the configuration, float32."""
-    leaves = ref_gen.leaves(model["code_dim"], model["norm"], model["num_landmarks"])
+def _fan_in(z: torch.Tensor) -> int:
+    return math.prod(z.shape[1:])
+
+
+# a leaf's kind -> its value from the leaf's standard-normal draw ``z``
+INIT: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "conv": lambda z: z * math.sqrt(2.0 / _fan_in(z)),
+    "out_weight": lambda z: z * math.sqrt(1.0 / _fan_in(z)),
+    "out_bias": lambda z: z * 0.1,
+    "bn_weight": lambda z: 1.0 + 0.1 * z,
+    "bn_bias": lambda z: 0.1 * z,
+    "bn_mean": lambda z: 0.1 * z,
+    "bn_var": lambda z: torch.exp(0.2 * z),
+}
+
+
+def seeded_weights(model_module, model: dict, seed: int, device) -> Dict[str, torch.Tensor]:
+    """Every parameter and buffer of the configuration's model, float32: the
+    leaves of ``model_module.leaves(model)`` cut from one draw of the seed,
+    each through ``model_module.INIT`` of its kind (an unknown kind raises)."""
+    leaves = model_module.leaves(model)
     sizes = [math.prod(shape) for _, shape, _ in leaves]
     flat = torch.randn(sum(sizes), generator=device_generator(seed, "weights", device),
                        device=device)
@@ -38,30 +58,8 @@ def generator_weights(model: dict, seed: int, device) -> Dict[str, torch.Tensor]
     for (name, shape, kind), n in zip(leaves, sizes):
         z = flat[at:at + n].view(shape)
         at += n
-        if kind in ("conv", "out_weight"):
-            fan_in = math.prod(shape[1:])
-            z = z * math.sqrt((2.0 if kind == "conv" else 1.0) / fan_in)
-        elif kind == "out_bias":
-            z = z * 0.1
-        elif kind == "bn_weight":
-            z = 1.0 + 0.1 * z
-        elif kind in ("bn_bias", "bn_mean"):
-            z = 0.1 * z
-        elif kind == "bn_var":
-            z = torch.exp(0.2 * z)
-        out[name] = z.contiguous()
+        out[name] = model_module.INIT[kind](z).contiguous()
     return out
-
-
-def port_state_dict(weights: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The weights as the port's ``SequenceGeneratorCNN`` loads them: a BN
-    layer also carries ``num_batches_tracked``."""
-    sd = dict(weights)
-    for name in weights:
-        if name.endswith(".norm.running_var"):
-            sd[name[: -len("running_var")] + "num_batches_tracked"] = torch.zeros(
-                (), dtype=torch.long, device=weights[name].device)
-    return sd
 
 
 def speech_like_audio(n: int, length: int, gen: torch.Generator, device,
