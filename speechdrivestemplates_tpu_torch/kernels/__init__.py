@@ -22,7 +22,9 @@ captures a CUDA graph is recorded, not run: the graph runner
 the graph's captured launches to ``REPLAYED``. ``executions()`` counts the
 kernels that ran: ``LAUNCHES - CAPTURED + REPLAYED``. ``LAYOUTS`` counts the
 same launches of a kernel that reads more than one layout by the layout it
-was handed, ``LAYOUTS["bn_act", "channels_last"]`` and so on.
+was handed, ``LAYOUTS["bn_act", "channels_last"]`` and so on. ``ATTENTION``
+counts the attention calls the host ran (eager, or once at a graph's capture)
+by SDPA backend, ``"flash"`` or ``"math"`` (``models/speech_encoder.py``).
 
 The kernels are forward-only, as the JAX package's Pallas kernels are: they
 write through raw pointers, and the ops have no autograd formula. Each
@@ -65,12 +67,13 @@ LAUNCHES: collections.Counter = collections.Counter()
 CAPTURED: collections.Counter = collections.Counter()
 REPLAYED: collections.Counter = collections.Counter()
 LAYOUTS: collections.Counter = collections.Counter()
+ATTENTION: collections.Counter = collections.Counter()
 _libs: dict = {}
 _lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for c in (LAUNCHES, CAPTURED, REPLAYED, LAYOUTS):
+    for c in (LAUNCHES, CAPTURED, REPLAYED, LAYOUTS, ATTENTION):
         c.clear()
 
 

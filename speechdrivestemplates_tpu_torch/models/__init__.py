@@ -11,15 +11,17 @@ from ..utils.device import resolve_device
 from .autoencoder import Autoencoder, PoseSeqDecoder, PoseSeqEncoder
 from .discriminator import PoseSequenceDiscriminator
 from .generator import AudioEncoder, SequenceGeneratorCNN, UNet1D
+from .speech_encoder import SequenceGeneratorHuBERT, SpeechEncoder
 
 MODELS = {"SequenceGeneratorCNN": SequenceGeneratorCNN,
+          "SequenceGeneratorHuBERT": SequenceGeneratorHuBERT,
           "PoseSequenceDiscriminator": PoseSequenceDiscriminator,
           "PoseSeqEncoder": PoseSeqEncoder,
           "Autoencoder": Autoencoder}
 
 __all__ = ["AudioEncoder", "Autoencoder", "PoseSeqDecoder", "PoseSeqEncoder",
-           "PoseSequenceDiscriminator", "SequenceGeneratorCNN", "UNet1D", "build_model",
-           "compute_dtype"]
+           "PoseSequenceDiscriminator", "SequenceGeneratorCNN", "SequenceGeneratorHuBERT",
+           "SpeechEncoder", "UNet1D", "build_model", "compute_dtype"]
 
 
 def compute_dtype(cfg) -> torch.dtype:

@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import stem as stem_ops
+from ..ops.mel import mel_spectrogram, mel_spectrogram_plain
 from ..ops.resize import interpolate_bilinear, interpolate_linear_time
 from ..utils import trace
 from .blocks import ConvNormRelu, lecun_conv1d
@@ -126,7 +127,11 @@ class UNet1D(nn.Module):
 
 
 class SequenceGeneratorCNN(nn.Module):
-    """AudioEncoder -> [concat clip code] -> UNet1D -> conv decoder -> (B, T, 2, K)."""
+    """AudioEncoder -> [concat clip code] -> UNet1D -> conv decoder -> (B, T, 2, K).
+    ``MEL_INPUT``: ``features`` is the mel, which the sequence-parallel demo
+    splits and the serving export covers."""
+
+    MEL_INPUT = True
 
     def __init__(self, num_landmarks: int = 121, code_dim: Optional[int] = None,
                  norm: str = "IN", leaky: bool = True,
@@ -138,10 +143,16 @@ class SequenceGeneratorCNN(nn.Module):
         self.code_dim = code_dim
         self.dtype = dtype
         self.audio_encoder = AudioEncoder(norm, leaky, dtype, generator)
-        self.unet = UNet1D(256 + (code_dim or 0), norm, leaky, dtype, generator)
-        out = lecun_conv1d(256, 2 * num_landmarks, generator)
+        self._build_head(256, norm, leaky, generator)
+
+    def _build_head(self, audio_channels: int, norm: str, leaky: bool,
+                    generator: torch.Generator) -> None:
+        """The UNet over the audio's channels and the code's, and the decoder."""
+        self.unet = UNet1D(audio_channels + (self.code_dim or 0), norm, leaky, self.dtype,
+                           generator)
+        out = lecun_conv1d(256, 2 * self.num_landmarks, generator)
         self.decoder = nn.Sequential(
-            *[ConvNormRelu("1d", 256, 256, norm=norm, leaky=leaky, dtype=dtype,
+            *[ConvNormRelu("1d", 256, 256, norm=norm, leaky=leaky, dtype=self.dtype,
                            generator=generator) for _ in range(4)], out)
 
     @classmethod
@@ -151,6 +162,12 @@ class SequenceGeneratorCNN(nn.Module):
         return cls(cfg.DATASET.NUM_LANDMARKS, gcfg.CLIP_CODE.DIMENSION, gcfg.NORM,
                    gcfg.LEAKY_RELU, dtype, generator)
 
+    def features(self, audio: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """What the generator takes of a (B, L) waveform: its mel spectrogram
+        (the kernel on the card, the plain version on the CPU or with
+        ``plain``)."""
+        return (mel_spectrogram_plain if plain else mel_spectrogram)(audio)
+
     def forward(self, mel: torch.Tensor, num_frames: int,
                 code: Optional[torch.Tensor] = None,
                 plain: bool = False) -> torch.Tensor:
@@ -159,8 +176,18 @@ class SequenceGeneratorCNN(nn.Module):
         the compute dtype. ``plain`` runs the plain layers even on the card in
         eval mode, an IN stem's and every BN layer's (a reference); train mode
         always does."""
-        x = self.audio_encoder(mel, num_frames, plain)  # (B, 256, T)
+        return self.decode(self.audio_encoder(mel, num_frames, plain), num_frames, code, plain)
+
+    def unet_input(self, x: torch.Tensor, num_frames: int) -> torch.Tensor:
+        """The audio encoder's output as the UNet takes it, (B, 256, num_frames)."""
+        return x
+
+    def decode(self, x: torch.Tensor, num_frames: int, code: Optional[torch.Tensor],
+               plain: bool = False) -> torch.Tensor:
+        """The audio encoder's output -> ``unet_input`` -> [concat code] ->
+        UNet1D -> decoder -> (B, num_frames, 2, K)."""
         with trace.span("unet"):
+            x = self.unet_input(x, num_frames)  # (B, 256, T)
             if self.code_dim is not None:
                 if code is None:
                     raise ValueError("this generator takes a clip code")

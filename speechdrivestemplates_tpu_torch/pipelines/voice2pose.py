@@ -16,8 +16,10 @@ init, or from a Pose2Pose checkpoint's encoder
 (VOICE2POSE.POSE_ENCODER.AE_CHECKPOINT).
 
 One train step, in order (``train_step``):
-  1. the mel spectrogram of the batch's audio (the CUDA kernel on the card;
-     audio takes no gradient);
+  1. the generator's ``features`` of the batch's audio: the mel spectrogram
+     for ``SequenceGeneratorCNN`` (the CUDA kernel on the card), each clip's
+     normalized waveform for ``SequenceGeneratorHuBERT``; audio takes no
+     gradient;
   2. the generator in train mode (an IN stem as plain cuDNN convs under
      autograd), with codes ``clips_code[clip_index]`` where it takes them;
   3. with a discriminator, three train-mode D forwards in the reference's
@@ -95,7 +97,7 @@ import torch.nn as nn
 
 from ..models import build_model
 from ..ops.longform import stitch_windows, window_audio
-from ..ops.mel import _mel_filterbank_np, mel_spectrogram, mel_spectrogram_plain
+from ..ops.mel import _mel_filterbank_np
 from ..ops.pose import (get_final_results, multiply_batch, step_metrics,
                         transform_normalized_parted2global)
 from ..parallel import dist as pdist
@@ -504,9 +506,9 @@ def train_step(state: Voice2PoseTrainState, batch: Dict[str, object],
     b = _to_device(batch, state.device)
     gt, stat = b["poses"], b["speaker_stat"]
 
-    mel = (mel_spectrogram_plain if plain else mel_spectrogram)(b["audio"])
+    feats = state.generator.features(b["audio"], plain)
     code = None if state.clips_code is None else state.clips_code[b["clip_index"]]
-    pred = state.generator(mel, cfg.DATASET.NUM_FRAMES, code)
+    pred = state.generator(feats, cfg.DATASET.NUM_FRAMES, code)
     D, score_fake = state.discriminator, None
     if D is not None:
         # the reference's three train-mode forwards, in its order: each moves
@@ -619,10 +621,10 @@ def eval_step(state: Voice2PoseTrainState, batch: Dict[str, object],
 
     D = state.discriminator
     with eval_mode(state.generator, state.pose_encoder, D):
-        mel = (mel_spectrogram_plain if plain else mel_spectrogram)(b["audio"])
+        feats = state.generator.features(b["audio"], plain)
         code = (fixed_code.to(dev) if fixed_code is not None
                 else condition_code(state, b, interpolation_coeff, sharded, plain))
-        pred = state.generator(mel, num_frames, code, plain=plain)
+        pred = state.generator(feats, num_frames, code, plain=plain)
         results = {"poses_pred_batch": final(pred)}
         if code is not None:
             results["condition_code"] = code
@@ -700,6 +702,9 @@ def seq_parallel_demo_forward(state: Voice2PoseTrainState, batch: Dict[str, obje
     from ..parallel.seqparallel import generator_seq_parallel
 
     cfg, dev = state.cfg, state.device
+    if not state.generator.MEL_INPUT:
+        raise ValueError(f"{type(state.generator).__name__}: the time axis splits over the "
+                         "ranks in a mel encoder only")
     if state.clips_code is not None and cfg.VOICE2POSE.GENERATOR.CLIP_CODE.FRAME_VARIANT:
         raise NotImplementedError(
             "DEMO.SEQUENCE_PARALLEL does not support FRAME_VARIANT clip "
@@ -712,8 +717,7 @@ def seq_parallel_demo_forward(state: Voice2PoseTrainState, batch: Dict[str, obje
     audio_pad = np.zeros(((t_mel - 1) * 160,), np.float32)
     audio_pad[: len(audio)] = audio
     with eval_mode(state.generator):
-        mel = (mel_spectrogram_plain if plain else mel_spectrogram)(
-            torch.from_numpy(audio_pad[None]).to(dev))
+        mel = state.generator.features(torch.from_numpy(audio_pad[None]).to(dev), plain)
         code = demo_code(state, interpolation_coeff)
         code = None if code is None else code[None]
         pred = generator_seq_parallel(state.generator, mel, t_pad, code)[:, :num_frames]

@@ -3,7 +3,8 @@
 ``build_serving_fn(cfg, state_dict, device)`` returns ``(fn, has_code)``:
 ``fn(audio[, code])`` maps a (B, L) float32 16 kHz waveform batch (and a
 (B, code_dim) template code for code models) to (B, num_frames, 2, K) float32
-poses in pixel space: mel frontend, generator, the speaker's statistics (the
+poses in pixel space: the generator's ``features`` of the waveform (the mel
+for ``SequenceGeneratorCNN``), generator, the speaker's statistics (the
 parted or the global table, as DATASET.HIERARCHICAL_POSE says), and re-rooting
 to global coordinates when DATASET.HIERARCHICAL_POSE. B and L come from the
 input. ``ServingModule`` is that function as an ``nn.Module``, which
@@ -22,7 +23,12 @@ starts eagerly again. On the CPU every call is eager. ``fn.routes`` counts
 the calls by route (``eager``, ``captured``, ``replayed``). A replayed call
 records the spans ``serve.forward`` and, inside it, ``serve.replay``
 (``utils/trace.py``); the forward's sections record at a signature's eager
-call, and, flagged ``captured``, at its capture.
+call, and, flagged ``captured``, at its capture. A replay reads the weights
+its capture read: ``SequenceGeneratorCNN``'s parameters, and
+``SequenceGeneratorHuBERT``'s cache of folded, cast weights, which
+``load_state_dict`` refreshes in place. A parameter of the latter changed in
+place otherwise reaches a replay only after an eager forward: reload the
+state dict after such a change.
 
 Command line (one wav request; a reference-layout ``.pth`` checkpoint):
 
@@ -55,7 +61,6 @@ from torch import nn
 from .config import load_config
 from .datasets.speakers_stat import get_speaker_stat
 from .models import build_model
-from .ops.mel import mel_spectrogram
 from .ops.pose import get_final_results
 from .pipelines.graphed import Graph, warm_up
 from .utils import trace
@@ -92,8 +97,8 @@ class ServingModule(nn.Module):
             raise ValueError("this model takes a template code")
         B = audio.shape[0]
         with trace.span("serve.forward"):
-            mel = mel_spectrogram(audio)
-            pred = self.model(mel, self.num_frames, code if self.has_code else None)
+            feats = self.model.features(audio)
+            pred = self.model(feats, self.num_frames, code if self.has_code else None)
             with trace.span("final"):
                 return get_final_results(pred, self.mean.expand(B, -1), self.std.expand(B, -1),
                                          self.scale.expand(B), self.hierarchical, self.num_kp)

@@ -88,12 +88,16 @@ def export_serving_fn(cfg, checkpoint: str, out_path: str, batch_size: int = 1,
     on ``device`` to ``out_path``; returns the sidecar, also written to
     ``<out_path>.json``. ``audio_length`` defaults to DATASET.AUDIO_LENGTH."""
     # the model code: an export needs it, a load does not
+    from ..models import MODELS
     from ..serving import ServingModule
     from .weights import load_reference_pth
 
     if cfg.PIPELINE_TYPE != "Voice2Pose":
         raise ValueError("the serving export is the wav -> pose path; "
                          f"{cfg.PIPELINE_TYPE} has no audio input")
+    if not MODELS[cfg.VOICE2POSE.GENERATOR.NAME].MEL_INPUT:
+        raise ValueError(f"{cfg.VOICE2POSE.GENERATOR.NAME}: the serving export covers "
+                         "mel-input generators only")
     device = resolve_device(device)
     module = ServingModule(cfg, load_reference_pth(checkpoint), device)
     audio_length = audio_length or cfg.DATASET.AUDIO_LENGTH

@@ -1101,3 +1101,89 @@ def test_sdt_bp_serving_replay_against_its_plain_forward(cuda):
            / torch.linalg.norm(want.float())).item()
     print(f"in_act SDT-BP serving B=4 bf16: rel L2 to the plain forward {rel:.3e}")
     assert rel < 2e-2, rel
+
+
+# a speech encoder small enough to build in a second: published kernels and
+# strides, every width cut
+HUBERT_TINY = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                   intermediate_size=128, conv_dim=(32,) * 7, num_conv_pos_embeddings=16,
+                   num_conv_pos_embedding_groups=4)
+
+
+def _hubert_fn(monkeypatch, tiny: bool, seed: int = 8):
+    """SDT-HuBERT's bf16 serving function on the card, at HUBERT_TINY or the
+    published widths (``speech_encoder.HUBERT_LARGE``), and its layer count."""
+    from speechdrivestemplates_tpu_torch import config, models
+    from speechdrivestemplates_tpu_torch.models import speech_encoder as SE
+    from speechdrivestemplates_tpu_torch.serving import build_serving_fn
+
+    cls = models.MODELS["SequenceGeneratorHuBERT"]
+    if tiny:
+        cls = type("TinyHuBERT", (cls,), {"SPEC": SE.SpeechEncoderSpec(**HUBERT_TINY)})
+        monkeypatch.setitem(models.MODELS, "SequenceGeneratorHuBERT", cls)
+    cfg = config.sdt_hubert()
+    sd = models.build_model(cfg.VOICE2POSE.GENERATOR.NAME, cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(seed)).state_dict()
+    fn, has_code = build_serving_fn(cfg, sd, "cuda")
+    assert has_code
+    return fn, cls.SPEC.num_hidden_layers
+
+
+@pytest.mark.parametrize("tiny", [True, False], ids=["tiny", "published"])
+def test_speech_encoder_card_forward_against_its_plain_forward(cuda, monkeypatch, tiny):
+    """At B = 2 in bf16, the card's forward (flash attention, one call a
+    layer, no math-backend call) lies within rel L2 2e-2 of the same weights'
+    ``plain`` forward (the math backend, and the UNet's and decoder's plain IN
+    layers), the bf16 gate SDT-BP's and s2g's serving forwards are held to."""
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.ops.pose import get_final_results
+
+    fn, layers = _hubert_fn(monkeypatch, tiny)
+    rng = np.random.RandomState(31)
+    audio, code = _randn(rng, 2, 68267, scale=0.1), _randn(rng, 2, 32)
+    kernels.reset_launch_counts()
+    got = fn(audio, code)
+    torch.cuda.synchronize()
+    assert dict(kernels.ATTENTION) == {"flash": layers}
+    m = fn.module
+    with torch.inference_mode():
+        pred = m.model(m.model.features(audio, True), m.num_frames, code, plain=True)
+        want = get_final_results(pred, m.mean.expand(2, -1), m.std.expand(2, -1),
+                                 m.scale.expand(2), m.hierarchical, m.num_kp)
+    assert dict(kernels.ATTENTION) == {"flash": layers, "math": layers}
+    rel = (torch.linalg.norm(got.float() - want.float())
+           / torch.linalg.norm(want.float())).item()
+    print(f"SDT-HuBERT {'tiny' if tiny else 'published'} B=2 bf16: rel L2 card to plain "
+          f"{rel:.3e}")
+    assert got.shape == (2, 64, 2, 121) and rel < 2e-2, rel
+
+
+@pytest.mark.parametrize("tiny", [True, False], ids=["tiny", "published"])
+def test_speech_encoder_serving_replay_equals_eager(cuda, monkeypatch, tiny):
+    """The serving function's eager call, its capture call and two replays
+    return the same poses, bit for bit; attention is counted at the eager call
+    and the capture (flash, once a layer each) and not at replays. At the tiny
+    size, new weights loaded into the module after the capture reach the
+    replay (the cache of folded, cast weights is refreshed in place): the
+    replay then equals the module's eager forward on them."""
+    from speechdrivestemplates_tpu_torch import kernels, models
+
+    fn, layers = _hubert_fn(monkeypatch, tiny)
+    rng = np.random.RandomState(32)
+    audio, code = _randn(rng, 2, 68267, scale=0.1), _randn(rng, 2, 32)
+    kernels.reset_launch_counts()
+    outs = [fn(audio, code) for _ in range(4)]
+    torch.cuda.synchronize()
+    assert dict(fn.routes) == {"eager": 1, "captured": 1, "replayed": 2}
+    diff = [float((o.float() - outs[0].float()).abs().max()) for o in outs[1:]]
+    assert bool(torch.isfinite(outs[0]).all()) and diff == [0.0] * 3, diff
+    assert dict(kernels.ATTENTION) == {"flash": 2 * layers}
+    if not tiny:
+        return
+    sd = models.MODELS["SequenceGeneratorHuBERT"](
+        121, 32, generator=torch.Generator().manual_seed(9)).state_dict()
+    fn.module.model.load_state_dict(sd, strict=True)
+    replayed = fn(audio, code)
+    with torch.inference_mode():
+        eager = fn.module(audio, code)
+    assert torch.equal(replayed, eager) and not torch.equal(replayed, outs[0])
