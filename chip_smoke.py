@@ -30,7 +30,11 @@ Phases, each of which must pass or the script exits non-zero:
               plus 2e-6 x max(1, |plain|) on every element, the shares one ulp off and
               further reported), its ms over the 21 layers beside the plain path's,
               F.instance_norm's (2-D) and F.layer_norm's (1-D) with F.leaky_relu, and the
-              bound
+              bound; the ln_gelu kernel at HuBERT Large's 7 feature-encoder outputs at
+              B = 128 in bf16 against the plain path with in_act's gate, its ms beside
+              the plain path's, the three bf16 passes' (x + bias, F.layer_norm, F.gelu)
+              and the bound; SDT-HuBERT's B = 128 serving call (eager, capture, replay)
+              executes it 7 times a call (`ln_gelu_phase`)
   8. cli      the serving command line on a seeded wav and a reference-layout .pth
   9. probe    the kernel-probe command line (profile_kernels, both probes) in a
               subprocess: rc 0, its JSON line, both of its kernels launched
@@ -214,7 +218,8 @@ rank's counted in its own process; conv1's and the stem's over the serving
 requests, the eval batches, the demo routes, phase 18, phase 19 and phase
 20's evaluations; bn_act's over phase 13's eval batches (the pose encoder's BN
 in eval mode), phase 16's requests, phase 18's s2g artifact call and phase
-20's evaluations; in_act's over the same SDT-BP routes as conv1's), the card's
+20's evaluations; in_act's over the same SDT-BP routes as conv1's; ln_gelu's
+over phase 7's SDT-HuBERT calls), the card's
 name and power limit, a JSON line with the
 train step's time, one with phases 12-14's numbers, one with phase 15's, one
 with phase 16's, one with phase 17's, one with phase 18's, one with phase
@@ -1054,6 +1059,110 @@ def loader_phase(ctx) -> dict:
     return {"loader": line}
 
 
+# ---- 7. serving: SDT-HuBERT's feature-encoder norm (sdt::ln_gelu) -------------------------
+
+def ln_gelu_phase(ctx) -> None:
+    """The ln_gelu kernel at HuBERT Large's seven feature-encoder outputs at B =
+    128 in bf16 against ln_gelu_plain (one bf16 ulp plus 2e-6 x max(1, |plain|)
+    on every element), timed beside the plain path and the three bf16 passes of
+    the plain composition; then SDT-HuBERT's B = 128 serving call executes it 7
+    times a call. Fills ``ctx.report["ln_gelu"]``; ``ctx`` holds dev, card and
+    report."""
+    import torch
+    import torch.nn.functional as F
+
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.config import sdt_hubert
+    from speechdrivestemplates_tpu_torch.models import build_model
+    from speechdrivestemplates_tpu_torch.models.speech_encoder import HUBERT_LARGE
+    from speechdrivestemplates_tpu_torch.ops import bn_act as BA
+    from speechdrivestemplates_tpu_torch.ops import ln_gelu as LG
+    from speechdrivestemplates_tpu_torch.serving import build_serving_fn
+    from speechdrivestemplates_tpu_torch.utils.timing import cuda_ms
+
+    dev, bf, spec, B, L = ctx.dev, torch.bfloat16, HUBERT_LARGE, 128, 68267
+    eps, frames, n = spec.layer_norm_eps, [], L
+    for k, s in zip(spec.conv_kernel, spec.conv_stride):
+        n = (n - k) // s + 1
+        frames.append(n)
+    # convolution-like rows (per row a mean of N(0, 1) and a scale of exp(N(0, 0.5)), per
+    # channel an offset of N(0, 0.5)), and a bias, weight and beta of 0.1 z, 1 + 0.1 z, 0.1 z
+    g = torch.Generator(device=dev).manual_seed(24)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    layers = []
+    for t, c in zip(frames, spec.conv_dim):
+        x = randn(B, t, c).mul_(torch.exp(0.5 * randn(B, t, 1))).add_(randn(B, t, 1)) \
+            .add_(0.5 * randn(c)).to(bf)
+        layers.append((x, *((0.1 * randn(c) + s).to(bf) for s in (0.0, 1.0, 0.0))))
+    n_el = sum(x.numel() for x, *_ in layers)
+    one, far, err, gate = 0, 0, 0.0, True
+    with torch.no_grad():
+        for x, b, w, beta in layers:
+            k, p = LG.ln_gelu_kernel(x, b, w, beta, eps), LG.ln_gelu_plain(x, b, w, beta, eps)
+            for kc, pc in zip(k.split(16), p.split(16)):  # 16 clips at a time: int64 ulps
+                d = BA.ulp_distance(kc, pc)
+                one, far = one + int((d == 1).sum()), far + int((d > 1).sum())
+                diff, pf = (kc.float() - pc.float()).abs(), pc.float()
+                ulp = torch.ldexp(torch.ones_like(pf), torch.frexp(pf).exponent - 8)
+                gate &= bool((diff <= ulp + 2e-6 * pf.abs().clamp(min=1)).all())
+                err = max(err, diff.max().item())
+                del d, diff, pf, ulp
+            del k, p
+    check(gate, "ln_gelu vs the plain path at HuBERT Large's 7 feature layers: beyond one "
+                "bf16 ulp plus 2e-6 x max(1, |plain|)")
+
+    def sweep(f):
+        with torch.no_grad():
+            for x, b, w, beta in layers:
+                f(x, b, w, beta)
+
+    def three_passes(x, b, w, beta):  # the plain composition after a conv with its bias
+        return F.gelu(F.layer_norm(x + b, (x.shape[-1],), w, beta, eps))
+
+    # benchmark/counts/ln_gelu.py's count: each element read and written once, 3 x C params
+    lg_b, lg_by = bound_ms(2.0 * (2 * n_el + 3 * sum(spec.conv_dim)), 2.0 * n_el, "bf16")
+    report = ctx.report["ln_gelu"]
+    report.update(
+        max_abs_err=err, one_ulp_share=one / n_el, beyond_one_ulp_share=far / n_el,
+        ms=cuda_ms(lambda: sweep(lambda *a: LG.ln_gelu_kernel(*a, eps)), [()], 10),
+        plain_ms=cuda_ms(lambda: sweep(lambda *a: LG.ln_gelu_plain(*a, eps)), [()], 3),
+        bound_ms=lg_b, bound_by=lg_by, library_ms=cuda_ms(lambda: sweep(three_passes), [()], 10))
+    print(f"[serve-ln_gelu] HuBERT Large's 7 feature layers at B=128, bf16, T = {frames} "
+          f"({n_el} elements): kernel vs the plain path {one / n_el:.3e} of elements one ulp "
+          f"off, {far / n_el:.3e} further (within 2e-6), max abs err {err:.3e}; kernel "
+          f"{report['ms']:.4f} ms, plain {report['plain_ms']:.4f} ms, x + bias, F.layer_norm, "
+          f"F.gelu {report['library_ms']:.4f} ms, bound {lg_b:.4f} ms ({lg_by}); {ctx.card}",
+          flush=True)
+    del layers
+
+    # SDT-HuBERT's B = 128 serving call: eager, captured + replayed, replayed, each
+    # executing the kernel once a feature layer; the counters zeroed before the first
+    cfg = sdt_hubert()
+    sd = build_model(cfg.VOICE2POSE.GENERATOR.NAME, cfg, device="cpu",
+                     generator=torch.Generator().manual_seed(0)).state_dict()
+    fn, has_code = build_serving_fn(cfg, sd, device=dev)
+    check(has_code, "SDT-HuBERT takes a template code")
+    audio, code = 0.1 * randn(B, L), randn(B, 32)
+    kernels.reset_launch_counts()
+    ran = []
+    for _ in range(3):
+        poses = fn(audio, code)
+        torch.cuda.synchronize()
+        check(poses.shape == (B, 64, 2, 121) and bool(torch.isfinite(poses).all()),
+              f"SDT-HuBERT poses {tuple(poses.shape)}, finite {bool(torch.isfinite(poses).all())}")
+        ran.append(kernels.executions()["ln_gelu"])
+    check(dict(fn.routes) == {"eager": 1, "captured": 1, "replayed": 1} and ran == [7, 14, 21],
+          f"SDT-HuBERT B=128 calls: routes {dict(fn.routes)}, ln_gelu executed {ran}")
+    report["launches"] += kernels.LAUNCHES["ln_gelu"]
+    print(f"[serve-ln_gelu] SDT-HuBERT bf16 B=128 serving: eager, capture, replay execute "
+          f"ln_gelu {ran} times in all (7 a call; {kernels.LAUNCHES['ln_gelu']} host launches, "
+          f"{kernels.REPLAYED['ln_gelu']} replayed)", flush=True)
+    del fn, sd
+
+
 def main() -> None:
     import torch
 
@@ -1105,6 +1214,10 @@ def main() -> None:
     report["in_act"] = dict(
         name="in_act", route="cuda", source="speechdrivestemplates_tpu_torch/csrc/in_act.cu",
         replaces="none: XLA fuses IN, lrelu and the cast in the JAX package", launches=0)
+    # the feature-encoder bias + LayerNorm + GELU + cast of SDT-HuBERT: phase 7
+    report["ln_gelu"] = dict(
+        name="ln_gelu", route="cuda", source="speechdrivestemplates_tpu_torch/csrc/ln_gelu.cu",
+        replaces="none: the JAX package has no speech encoder", launches=0)
 
     # ---- 3. mel kernel -----------------------------------------------------------
     def check_mel(audio, what):
@@ -1470,6 +1583,7 @@ def main() -> None:
           f"F.instance_norm / F.layer_norm + F.leaky_relu {report['in_act']['library_ms']:.4f} "
           f"ms, bound {in_b:.4f} ms ({in_by}); {card}", flush=True)
     del in_acts
+    ln_gelu_phase(SimpleNamespace(dev=dev, card=card, report=report))
 
     # ---- 8. command line ---------------------------------------------------------
     work = os.path.join(ROOT, "build", "chip_smoke")
@@ -3057,7 +3171,7 @@ def main() -> None:
     print(card)
     print(json.dumps({"kernels": [{k: report[n][k] for k in keys}
                                   for n in ("mel", "conv1", "stem", "shift_probe", "bn_act",
-                                            "in_act")]}))
+                                            "in_act", "ln_gelu")]}))
     print(json.dumps(train_line))
     print(json.dumps(chain_line))
     print(json.dumps({"graphed": graph_line}))

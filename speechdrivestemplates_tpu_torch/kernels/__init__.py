@@ -9,7 +9,7 @@ when its source is newer. ``build_all()`` compiles every source at once, one
 
 Importing this package registers the kernels as ``torch.library`` custom
 ops, ``torch.ops.sdt.{mel, conv1_in, stem, shift_taps, bn_act, in_act,
-in_act_stats}`` (``kernels/ops.py``); the ``ctypes`` calls live in those ops'
+in_act_stats, ln_gelu}`` (``kernels/ops.py``); the ``ctypes`` calls live in those ops'
 CUDA implementations alone. The wrappers in ``ops/`` check their inputs and call
 the ops, and an exported serving graph (``utils/export.py``) calls them too,
 so a process that loads one imports this package first.
@@ -57,6 +57,7 @@ SIGNATURES = {
     "shift_probe": {"sdt_shift_taps_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "bn_act": {"sdt_bn_act_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]},
     "in_act": {"sdt_in_act_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]},
+    "ln_gelu": {"sdt_ln_gelu_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P]},
 }
 
 # what the wrappers in ops/ take: CUDA tensors, and meta tensors, whose shapes

@@ -1,4 +1,4 @@
-"""The six kernels as ``torch.library`` custom ops, namespace ``sdt``.
+"""The seven kernels as ``torch.library`` custom ops, namespace ``sdt``.
 
     sdt::mel(audio, cs_hi, cs_lo, fb_hi, fb_lo)  (B, L) f32 -> (B, 80, L//160+1) f32
     sdt::conv1_in(mel, w1, slope, dtype)         (B, 80, W1) f32 -> (B, 82, W1, 64) dtype
@@ -11,6 +11,8 @@
                                                  shape and strides, dtype
     sdt::in_act_stats(x, slope)                  in_act's output, and the fp32 mean and
                                                  variance it used, (B, C) or (B, T) each
+    sdt::ln_gelu(x, bias, weight, beta, eps)     (..., C) dtype rows -> the same shape, dtype,
+                                                 contiguous
 
 ``in_act_stats`` launches the same kernel as ``in_act`` and lets tests read
 its statistics; the serving route calls ``in_act``.
@@ -63,6 +65,7 @@ LIB.define("bn_act(Tensor x, Tensor running_mean, Tensor running_var, Tensor wei
            "Tensor bias, float slope) -> Tensor")
 LIB.define("in_act(Tensor x, float slope) -> Tensor")
 LIB.define("in_act_stats(Tensor x, float slope) -> (Tensor, Tensor, Tensor)")
+LIB.define("ln_gelu(Tensor x, Tensor bias, Tensor weight, Tensor beta, float eps) -> Tensor")
 
 
 @torch.library.impl("sdt::mel", "CUDA", lib=LIB)
@@ -259,3 +262,21 @@ def in_act_stats(x, slope):
 @torch.library.register_fake("sdt::in_act_stats", lib=LIB)
 def _(x, slope):
     return _in_act_fake(x), _in_act_stat(x), _in_act_stat(x)
+
+
+@torch.library.impl("sdt::ln_gelu", "CUDA", lib=LIB)
+def ln_gelu(x, bias, weight, beta, eps):
+    x, bias, weight, beta = (t.contiguous() for t in (x, bias, weight, beta))
+    C = x.shape[-1]
+    out = torch.empty_like(x)
+    err = library("ln_gelu").sdt_ln_gelu_forward(
+        x.data_ptr(), out.data_ptr(), bias.data_ptr(), weight.data_ptr(), beta.data_ptr(),
+        int(x.dtype == torch.bfloat16), x.numel() // C, C, float(eps), current_stream(x.device))
+    LAUNCHES["ln_gelu"] += 1
+    check(err, "sdt_ln_gelu_forward")
+    return out
+
+
+@torch.library.register_fake("sdt::ln_gelu", lib=LIB)
+def _(x, bias, weight, beta, eps):
+    return x.new_empty(x.shape)

@@ -7,7 +7,9 @@ widths of ``HUBERT_LARGE``, the one table of them (``SpeechEncoderSpec``, whose
 fields are the config's keys):
 
 - feature encoder: seven ``Conv1d`` with bias over the raw waveform, each
-  followed by a LayerNorm over its channels and GELU;
+  followed by a LayerNorm over its channels and GELU (on the card, in a
+  forward that takes no gradient, the bias, LayerNorm and GELU run as one
+  kernel after a convolution without its bias: ``ops/ln_gelu.py``);
 - feature projection: LayerNorm, then Linear to the hidden size;
 - positional convolution: a grouped ``Conv1d`` under weight norm (``dim=2``),
   "same" padded (an even kernel's last frame dropped), GELU, added to its
@@ -61,6 +63,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import kernels
+from ..ops.ln_gelu import ln_gelu_kernel
 from ..ops.resize import interpolate_linear_time
 from ..utils import trace
 from .generator import SequenceGeneratorCNN
@@ -310,15 +313,23 @@ class SpeechEncoder(nn.Module):
         convs, (pln_w, pln_b, proj_w, proj_b), (pos_w, pos_b), layers, (ln_w, ln_b) = \
             self.weights()
         eps, h = spec.layer_norm_eps, spec.hidden_size
+        # the conv stack's bias, LayerNorm and GELU in one kernel: on the card,
+        # in a forward that takes no gradient, unless asked for the plain path
+        fused = (audio.device.type in kernels.DEVICE_TYPES and not plain
+                 and not (self.training or torch.is_grad_enabled()))
         with trace.span("encoder.features"):
             x = audio.to(self.dtype)[:, :, None]  # (B, L, 1)
             for (w, b, g, beta), stride in zip(convs, spec.conv_stride):
                 # (B, T, C) read as (B, C, 1, T) channels-last: the convolution
                 # reads and writes that layout and the LayerNorm's channels are
                 # the inner axis, so no activation is transposed
-                y = F.conv2d(x.transpose(1, 2).unsqueeze(2), w, b, stride=(1, stride))
+                y = F.conv2d(x.transpose(1, 2).unsqueeze(2), w, None if fused else b,
+                             stride=(1, stride))
                 y = y.squeeze(2).transpose(1, 2)
-                x = F.gelu(F.layer_norm(y, (y.shape[-1],), g, beta, eps))
+                if fused:  # contiguous: free where cuDNN wrote channels-last, as on the card
+                    x = ln_gelu_kernel(y.contiguous(), b, g, beta, eps)
+                else:
+                    x = F.gelu(F.layer_norm(y, (y.shape[-1],), g, beta, eps))
             x = F.linear(F.layer_norm(x, (x.shape[-1],), pln_w, pln_b, eps), proj_w, proj_b)
         with trace.span("encoder.transformer"):
             n, t = x.shape[:2]

@@ -584,6 +584,7 @@ def _op_args(name, rng):
     version on them with the gate of its kernel's tests (rtol, atol)."""
     from speechdrivestemplates_tpu_torch.ops import conv1 as C1
     from speechdrivestemplates_tpu_torch.ops import in_act as IA
+    from speechdrivestemplates_tpu_torch.ops import ln_gelu as LG
     from speechdrivestemplates_tpu_torch.ops import mel as M
     from speechdrivestemplates_tpu_torch.ops import shift_probe as SP
     from speechdrivestemplates_tpu_torch.ops import stem as S
@@ -592,6 +593,10 @@ def _op_args(name, rng):
     if name == "in_act":  # layer 3's channels-last activation; one bf16 ulp is 2^-8 relative
         x = _randn(rng, 3, 20, 106, 128).to(bf).permute(0, 3, 1, 2)
         return (x, 0.2), IA.in_act_plain(x, 0.2), (1e-2, 1e-2)
+    if name == "ln_gelu":  # the speech encoder's last feature layer, (B, 213, 512) rows
+        x = _randn(rng, 3, 213, 512).to(bf)
+        b, w, beta = (_randn(rng, 512, scale=0.1).to(bf) + s for s in (0.0, 1.0, 0.0))
+        return (x, b, w, beta, 1e-5), LG.ln_gelu_plain(x, b, w, beta, 1e-5), (1e-2, 1e-2)
     if name == "mel":
         audio = _randn(rng, 3, 68267, scale=0.1)
         return ((audio, *M._kernel_tables(audio.device)), M.mel_spectrogram_plain(audio),
@@ -609,7 +614,7 @@ def _op_args(name, rng):
     return (x, w, 500, True), SP.shift_taps_plain(x, w, 500), (1e-2, 1e-3)
 
 
-@pytest.mark.parametrize("name", ["mel", "conv1_in", "stem", "shift_taps", "in_act"])
+@pytest.mark.parametrize("name", ["mel", "conv1_in", "stem", "shift_taps", "in_act", "ln_gelu"])
 def test_ops_match_their_plain_versions(cuda, name):
     """Each op called through ``torch.ops.sdt`` directly, as an exported graph
     calls it: one launch, the plain version's result within its kernel's gate."""
@@ -624,7 +629,7 @@ def test_ops_match_their_plain_versions(cuda, name):
     torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("name", ["mel", "conv1_in", "stem", "shift_taps", "in_act"])
+@pytest.mark.parametrize("name", ["mel", "conv1_in", "stem", "shift_taps", "in_act", "ln_gelu"])
 def test_opcheck(cuda, name):
     """``torch.library.opcheck``: the schema, the fake against the real
     output, the autograd registration, and a trace under AOT dispatch."""
@@ -1132,9 +1137,12 @@ def _hubert_fn(monkeypatch, tiny: bool, seed: int = 8):
 @pytest.mark.parametrize("tiny", [True, False], ids=["tiny", "published"])
 def test_speech_encoder_card_forward_against_its_plain_forward(cuda, monkeypatch, tiny):
     """At B = 2 in bf16, the card's forward (flash attention, one call a
-    layer, no math-backend call) lies within rel L2 2e-2 of the same weights'
-    ``plain`` forward (the math backend, and the UNet's and decoder's plain IN
-    layers), the bf16 gate SDT-BP's and s2g's serving forwards are held to."""
+    layer, no math-backend call; the feature encoder's norm by ``ln_gelu``,
+    7 launches) lies within rel L2 2e-2 of the same weights' ``plain``
+    forward (the math backend, the feature encoder's convolution with its
+    bias, LayerNorm and GELU, and the UNet's and decoder's plain IN layers,
+    none launching ``ln_gelu``), the bf16 gate SDT-BP's and s2g's serving
+    forwards are held to."""
     from speechdrivestemplates_tpu_torch import kernels
     from speechdrivestemplates_tpu_torch.ops.pose import get_final_results
 
@@ -1145,12 +1153,14 @@ def test_speech_encoder_card_forward_against_its_plain_forward(cuda, monkeypatch
     got = fn(audio, code)
     torch.cuda.synchronize()
     assert dict(kernels.ATTENTION) == {"flash": layers}
+    assert kernels.LAUNCHES["ln_gelu"] == 7
     m = fn.module
     with torch.inference_mode():
         pred = m.model(m.model.features(audio, True), m.num_frames, code, plain=True)
         want = get_final_results(pred, m.mean.expand(2, -1), m.std.expand(2, -1),
                                  m.scale.expand(2), m.hierarchical, m.num_kp)
     assert dict(kernels.ATTENTION) == {"flash": layers, "math": layers}
+    assert kernels.LAUNCHES["ln_gelu"] == 7
     rel = (torch.linalg.norm(got.float() - want.float())
            / torch.linalg.norm(want.float())).item()
     print(f"SDT-HuBERT {'tiny' if tiny else 'published'} B=2 bf16: rel L2 card to plain "
@@ -1162,7 +1172,8 @@ def test_speech_encoder_card_forward_against_its_plain_forward(cuda, monkeypatch
 def test_speech_encoder_serving_replay_equals_eager(cuda, monkeypatch, tiny):
     """The serving function's eager call, its capture call and two replays
     return the same poses, bit for bit; attention is counted at the eager call
-    and the capture (flash, once a layer each) and not at replays. At the tiny
+    and the capture (flash, once a layer each) and not at replays; each call
+    executes ``ln_gelu`` 7 times. At the tiny
     size, new weights loaded into the module after the capture reach the
     replay (the cache of folded, cast weights is refreshed in place): the
     replay then equals the module's eager forward on them."""
@@ -1178,6 +1189,7 @@ def test_speech_encoder_serving_replay_equals_eager(cuda, monkeypatch, tiny):
     diff = [float((o.float() - outs[0].float()).abs().max()) for o in outs[1:]]
     assert bool(torch.isfinite(outs[0]).all()) and diff == [0.0] * 3, diff
     assert dict(kernels.ATTENTION) == {"flash": 2 * layers}
+    assert kernels.executions()["ln_gelu"] == 4 * 7
     if not tiny:
         return
     sd = models.MODELS["SequenceGeneratorHuBERT"](
@@ -1187,3 +1199,114 @@ def test_speech_encoder_serving_replay_equals_eager(cuda, monkeypatch, tiny):
     with torch.inference_mode():
         eager = fn.module(audio, code)
     assert torch.equal(replayed, eager) and not torch.equal(replayed, outs[0])
+
+
+# ---- the speech encoder's feature-encoder norm in one pass (sdt::ln_gelu) -----------------
+
+# HuBERT Large's feature-encoder outputs at 68,267 samples, batch aside: (T_i, C)
+HUBERT_FEATURES = [(13652, 512), (6825, 512), (3412, 512), (1705, 512), (852, 512), (426, 512),
+                   (213, 512)]
+# HUBERT_TINY's last layer (C = 32: one chunk, 4 lanes a row), a chunk a 512-byte row does
+# not fill (C = 40), and the widest C the kernel takes (four bf16 chunks, eight fp32)
+LN_GELU_OTHER = [(4, 19, 32), (3, 50, 40), (2, 37, 1024)]
+
+
+def _ln_like(seed, shape, dtype):
+    """A convolution-like (..., C) activation in ``dtype`` (per row a mean of
+    N(0, 1) and a scale of exp(N(0, 0.5)), per channel an offset of N(0,
+    0.5)) and a LayerNorm's bias, weight and beta in ``dtype``: 0.1 z, 1 +
+    0.1 z and 0.1 z."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[-1]
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device="cuda")
+
+    x = randn(*shape) * torch.exp(0.5 * randn(*shape[:-1], 1)) + randn(*shape[:-1], 1) \
+        + 0.5 * randn(c)
+    return x.to(dtype), (0.1 * randn(c)).to(dtype), (1 + 0.1 * randn(c)).to(dtype), \
+        (0.1 * randn(c)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(4, t, c) for t, c in HUBERT_FEATURES] + LN_GELU_OTHER,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ln_gelu_matches_the_plain_path(cuda, shape, dtype):
+    """``sdt::ln_gelu`` against ``ln_gelu_plain`` (the bias, ``F.layer_norm``
+    and ``F.gelu`` in fp32, cast once) at the seven published feature-layer
+    shapes at B = 4, HUBERT_TINY's C = 32, a C that leaves a chunk part-filled
+    and the widest C: one launch, a contiguous output of the input's shape
+    and dtype; fp32 within 2e-6 x max(1, |plain|), bf16 within that and one
+    bf16 ulp of the plain value (the statistics sum in another order than
+    ``F.layer_norm``'s Welford reduction, an fp32 round-off; the share of
+    elements one ulp off is printed)."""
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.ops import bn_act, ln_gelu
+
+    x, b, w, beta = _ln_like(23, shape, dtype)
+    before = kernels.LAUNCHES["ln_gelu"]
+    with torch.no_grad():
+        got = ln_gelu.ln_gelu_kernel(x, b, w, beta, 1e-5)
+        want = ln_gelu.ln_gelu_plain(x, b, w, beta, 1e-5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ln_gelu"] == before + 1
+    assert got.shape == want.shape == shape and got.dtype == want.dtype == dtype
+    assert got.is_contiguous() and torch.isfinite(got.float()).all()
+    g, v = got.float(), want.float()
+    gate = 2e-6 * v.abs().clamp(min=1)
+    if dtype == torch.bfloat16:
+        ulps = bn_act.ulp_distance(got, want)
+        print(f"ln_gelu {shape} bf16: {ulps.eq(1).float().mean().item():.3e} of elements 1 ulp "
+              f"off, {ulps.gt(1).float().mean().item():.3e} further")
+        gate = gate + torch.ldexp(torch.ones_like(v), torch.frexp(v).exponent - 8)
+    assert ((g - v).abs() <= gate).all(), ((g - v).abs() - gate).max().item()
+
+
+@pytest.mark.parametrize("tiny", [True, False], ids=["tiny", "published"])
+def test_hubert_serving_runs_ln_gelu_seven_times_a_call_on_channels_last_rows(cuda, monkeypatch,
+                                                                              tiny):
+    """SDT-HuBERT's bf16 serving function at B = 2: the eager call, the
+    capture call and a replay each execute ``ln_gelu`` 7 times (7 launches at
+    each host run, 7 captured, and 7 replayed by each of the capture call's
+    and the third call's replays), and every feature-encoder convolution
+    writes its output channels-last, so the kernel reads its (B, T, C) rows
+    without a copy."""
+    from speechdrivestemplates_tpu_torch import kernels
+
+    fn, _ = _hubert_fn(monkeypatch, tiny)
+    conv2d, dense = torch.nn.functional.conv2d, []
+
+    def spy(*args, **kwargs):
+        y = conv2d(*args, **kwargs)
+        dense.append(y.squeeze(2).transpose(1, 2).is_contiguous())
+        return y
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy)
+    rng = np.random.RandomState(33)
+    audio, code = _randn(rng, 2, 68267, scale=0.1), _randn(rng, 2, 32)
+    kernels.reset_launch_counts()
+    outs = [fn(audio, code) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert dict(fn.routes) == {"eager": 1, "captured": 1, "replayed": 1}
+    assert dense == [True] * 14  # the eager call's and the capture's convolutions
+    assert (kernels.LAUNCHES["ln_gelu"], kernels.CAPTURED["ln_gelu"],
+            kernels.REPLAYED["ln_gelu"], kernels.executions()["ln_gelu"]) == (14, 7, 14, 21)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.parametrize("preset", ["sdt_bp", "s2g"])
+def test_cnn_serving_never_runs_ln_gelu(cuda, preset):
+    """SDT-BP's and s2g's serving calls (eager, capture, replay) run no
+    speech encoder, so ``ln_gelu`` is never launched or replayed."""
+    from speechdrivestemplates_tpu_torch import kernels
+
+    fn, has_code = _serving_fn(preset)
+    rng = np.random.RandomState(34)
+    args = (_randn(rng, 2, 68267, scale=0.1), _randn(rng, 2, 32) if has_code else None)
+    kernels.reset_launch_counts()
+    for _ in range(3):
+        fn(*args)
+    torch.cuda.synchronize()
+    assert dict(fn.routes) == {"eager": 1, "captured": 1, "replayed": 1}
+    assert kernels.executions()["mel"] == 3 and kernels.executions()["ln_gelu"] == 0
+    assert "ln_gelu" not in kernels.LAUNCHES and "ln_gelu" not in kernels.REPLAYED

@@ -414,7 +414,7 @@ def build_model_state(cfg):
 def _op_cases():
     """Per op, two shapes: (op name, the op's arguments as (shape, dtype) or
     plain values, the plain version on CPU tensors of those shapes)."""
-    from speechdrivestemplates_tpu_torch.ops import conv1, in_act, mel, shift_probe, stem
+    from speechdrivestemplates_tpu_torch.ops import conv1, in_act, ln_gelu, mel, shift_probe, stem
 
     bf, f32 = torch.bfloat16, torch.float32
     tables = [((400, 512), bf)] * 2 + [((256, 80), bf)] * 2
@@ -440,11 +440,16 @@ def _op_cases():
         "in_act": [([(shape, dt), 0.2],
                     lambda t, dt=dt: in_act.in_act_plain(torch.zeros(*t[0].shape, dtype=dt), 0.2))
                    for shape, dt in (((2, 256, 5, 51), bf), ((3, 256, 2), f32))],
+        "ln_gelu": [([(shape, dt), ((shape[-1],), dt), ((shape[-1],), dt), ((shape[-1],), dt),
+                      1e-5],
+                     lambda t, dt=dt: ln_gelu.ln_gelu_plain(
+                         *(torch.zeros(*a.shape, dtype=dt) for a in t[:4]), 1e-5))
+                    for shape, dt in (((2, 213, 512), bf), ((3, 19, 32), f32))],
     }
 
 
 @pytest.mark.parametrize("case", [0, 1])
-@pytest.mark.parametrize("name", ["mel", "conv1_in", "stem", "shift_taps", "in_act"])
+@pytest.mark.parametrize("name", ["mel", "conv1_in", "stem", "shift_taps", "in_act", "ln_gelu"])
 def test_op_fakes_give_the_plain_versions_shapes_on_fake_cuda_tensors(name, case):
     """Each kernel is the op ``torch.ops.sdt.<name>``; on fake CUDA tensors,
     as ``torch.export`` traces them, its fake gives the shape and dtype of the
@@ -502,8 +507,8 @@ def test_the_card_route_exports_its_kernel_ops_once_each(preset, want):
 def test_kernel_launches_live_in_the_op_implementations_alone():
     """A source scan: ``data_ptr()``, the kernels' C entry points and the
     launch counter's increment appear in ``kernels/ops.py`` alone, which
-    holds one of each per kernel (``in_act`` and ``in_act_stats`` share
-    theirs)."""
+    holds one of each per kernel, seven (``in_act`` and ``in_act_stats``
+    share theirs)."""
     import re
 
     pattern = re.compile(r"data_ptr\(|sdt_\w+_forward\(|LAUNCHES\[[^\]]*\]\s*\+=")
@@ -512,8 +517,8 @@ def test_kernel_launches_live_in_the_op_implementations_alone():
     ops_file = "speechdrivestemplates_tpu_torch/kernels/ops.py"
     assert {k: v for k, v in found.items() if v} == {ops_file: found[ops_file]}
     text = (PORT / "kernels" / "ops.py").read_text()
-    assert len(re.findall(r"LAUNCHES\[[^\]]*\]\s*\+= 1", text)) == 6
-    assert len(re.findall(r"library\(\"\w+\"\)\.sdt_\w+_forward\(", text)) == 6
+    assert len(re.findall(r"LAUNCHES\[[^\]]*\]\s*\+= 1", text)) == 7
+    assert len(re.findall(r"library\(\"\w+\"\)\.sdt_\w+_forward\(", text)) == 7
 
 
 def test_runner_loads_no_model_code(tmp_path):
