@@ -24,8 +24,8 @@ be 'GestureDataset'.
 The presets stand for the repository's ``configs/*.yaml`` in code (the tests
 and the chip smoke run build them without a file): ``sdt_bp()`` (the
 flagship, ``configs/voice2pose_sdt_bp.yaml``), ``sdt_vae()``, ``s2g()``,
-``pose2pose()`` and ``sdt_hubert()``, each equal to ``load_config`` of its
-file.
+``pose2pose()``, ``sdt_hubert()`` and ``sdt_wavlm()``, each equal to
+``load_config`` of its file.
 """
 
 from __future__ import annotations
@@ -238,6 +238,15 @@ def sdt_hubert(speaker: Optional[str] = "oliver", precision: str = "bf16") -> Co
     return cfg
 
 
+def sdt_wavlm(speaker: Optional[str] = "oliver", precision: str = "bf16") -> Config:
+    """SDT-BP's codes, UNet and decoder behind WavLM Large's speech
+    transformer (``SequenceGeneratorWavLM``;
+    ``configs/voice2pose_sdt_wavlm.yaml``)."""
+    cfg = sdt_hubert(speaker, precision)
+    cfg.VOICE2POSE.GENERATOR.NAME = "SequenceGeneratorWavLM"
+    return cfg
+
+
 def s2g(speaker: Optional[str] = "oliver", precision: str = "bf16") -> Config:
     """s2g-GAN, the paper's baseline (``configs/voice2pose_s2g.yaml``): a
     code-less BN generator trained against the LSGAN
@@ -265,7 +274,7 @@ def pose2pose(speaker: Optional[str] = "oliver", precision: str = "fp32") -> Con
 
 PRESETS = {"voice2pose_sdt_bp": sdt_bp, "voice2pose_sdt_vae": sdt_vae,
            "voice2pose_s2g": s2g, "pose2pose": pose2pose,
-           "voice2pose_sdt_hubert": sdt_hubert}
+           "voice2pose_sdt_hubert": sdt_hubert, "voice2pose_sdt_wavlm": sdt_wavlm}
 DEFAULT_SPEAKER = "oliver"
 VIDEO_FORMATS = ("tensorboard", "mp4", "img")
 XLA_ONLY_KEYS = ("SYS.MEL_IMPL", "SYS.FUSED_STEM", "SYS.CONV_MM_GRAD", "SYS.DEBUG_NANS",

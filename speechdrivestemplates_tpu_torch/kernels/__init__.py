@@ -24,7 +24,8 @@ kernels that ran: ``LAUNCHES - CAPTURED + REPLAYED``. ``LAYOUTS`` counts the
 same launches of a kernel that reads more than one layout by the layout it
 was handed, ``LAYOUTS["bn_act", "channels_last"]`` and so on. ``ATTENTION``
 counts the attention calls the host ran (eager, or once at a graph's capture)
-by SDPA backend, ``"flash"`` or ``"math"`` (``models/speech_encoder.py``).
+by SDPA backend: ``"flash"``, ``"cudnn"`` (a biased attention on the card,
+``speech_encoder.BIASED_BACKEND``) or ``"math"`` (``models/speech_encoder.py``).
 
 The kernels are forward-only, as the JAX package's Pallas kernels are: they
 write through raw pointers, and the ops have no autograd formula. Each

@@ -11,17 +11,18 @@ from ..utils.device import resolve_device
 from .autoencoder import Autoencoder, PoseSeqDecoder, PoseSeqEncoder
 from .discriminator import PoseSequenceDiscriminator
 from .generator import AudioEncoder, SequenceGeneratorCNN, UNet1D
-from .speech_encoder import SequenceGeneratorHuBERT, SpeechEncoder
+from .speech_encoder import SequenceGeneratorHuBERT, SequenceGeneratorWavLM, SpeechEncoder
 
 MODELS = {"SequenceGeneratorCNN": SequenceGeneratorCNN,
           "SequenceGeneratorHuBERT": SequenceGeneratorHuBERT,
+          "SequenceGeneratorWavLM": SequenceGeneratorWavLM,
           "PoseSequenceDiscriminator": PoseSequenceDiscriminator,
           "PoseSeqEncoder": PoseSeqEncoder,
           "Autoencoder": Autoencoder}
 
 __all__ = ["AudioEncoder", "Autoencoder", "PoseSeqDecoder", "PoseSeqEncoder",
            "PoseSequenceDiscriminator", "SequenceGeneratorCNN", "SequenceGeneratorHuBERT",
-           "SpeechEncoder", "UNet1D", "build_model", "compute_dtype"]
+           "SequenceGeneratorWavLM", "SpeechEncoder", "UNet1D", "build_model", "compute_dtype"]
 
 
 def compute_dtype(cfg) -> torch.dtype:

@@ -18,8 +18,8 @@ init, or from a Pose2Pose checkpoint's encoder
 One train step, in order (``train_step``):
   1. the generator's ``features`` of the batch's audio: the mel spectrogram
      for ``SequenceGeneratorCNN`` (the CUDA kernel on the card), each clip's
-     normalized waveform for ``SequenceGeneratorHuBERT``; audio takes no
-     gradient;
+     normalized waveform for ``SequenceGeneratorHuBERT`` and
+     ``SequenceGeneratorWavLM``; audio takes no gradient;
   2. the generator in train mode (an IN stem as plain cuDNN convs under
      autograd), with codes ``clips_code[clip_index]`` where it takes them;
   3. with a discriminator, three train-mode D forwards in the reference's

@@ -3,7 +3,7 @@
 ``config.load_config`` (defaults, the YAML file, the overrides) against the
 JAX package's ``get_cfg_defaults(); merge_from_file(path);
 merge_from_list(opts)``, leaf for leaf over every key of both trees, for the
-five ``configs/*.yaml`` and an edited copy. The stated exceptions: where the
+six ``configs/*.yaml`` and an edited copy. The stated exceptions: where the
 file leaves them unset, TRAIN.PRECISION is bf16 for Voice2Pose (the port's
 flagship precision) and DATASET.SPEAKER is 'oliver' (JAX's dataset refuses
 None); TRAIN.WD is the float 0.0 where JAX has the int 0 (equal values; JAX's
@@ -30,7 +30,7 @@ from speechdrivestemplates_tpu_torch.datasets.synthetic import make_synthetic_sp
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))
-assert len(CONFIGS) == 5
+assert len(CONFIGS) == 6
 
 
 def _leaves(node, prefix=()):

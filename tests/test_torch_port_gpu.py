@@ -1115,18 +1115,29 @@ HUBERT_TINY = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
                    num_conv_pos_embedding_groups=4)
 
 
-def _hubert_fn(monkeypatch, tiny: bool, seed: int = 8):
-    """SDT-HuBERT's bf16 serving function on the card, at HUBERT_TINY or the
-    published widths (``speech_encoder.HUBERT_LARGE``), and its layer count."""
+# WavLM's at those widths: no conv bias, 16 buckets spaced by the log up to 12
+# frames, so that a 17 s window's 853 frames run the log branch and the clamp
+WAVLM_TINY = dict(HUBERT_TINY, conv_bias=False, num_buckets=16, max_bucket_distance=12)
+
+
+def _hubert_fn(monkeypatch, tiny: bool, seed: int = 8, name: str = "SequenceGeneratorHuBERT",
+               opts=()):
+    """SDT-HuBERT's bf16 serving function on the card (or, by ``name``,
+    SDT-WavLM's), at HUBERT_TINY (WAVLM_TINY) or the published widths
+    (``speech_encoder.HUBERT_LARGE``, ``WAVLM_LARGE``), and its layer count;
+    ``opts`` override the preset's keys."""
     from speechdrivestemplates_tpu_torch import config, models
     from speechdrivestemplates_tpu_torch.models import speech_encoder as SE
     from speechdrivestemplates_tpu_torch.serving import build_serving_fn
 
-    cls = models.MODELS["SequenceGeneratorHuBERT"]
+    wavlm = name == "SequenceGeneratorWavLM"
+    cls = models.MODELS[name]
     if tiny:
-        cls = type("TinyHuBERT", (cls,), {"SPEC": SE.SpeechEncoderSpec(**HUBERT_TINY)})
-        monkeypatch.setitem(models.MODELS, "SequenceGeneratorHuBERT", cls)
-    cfg = config.sdt_hubert()
+        cls = type("Tiny", (cls,), {"SPEC": SE.SpeechEncoderSpec(
+            **(WAVLM_TINY if wavlm else HUBERT_TINY))})
+        monkeypatch.setitem(models.MODELS, name, cls)
+    cfg = config.apply_overrides((config.sdt_wavlm if wavlm else config.sdt_hubert)(),
+                                 list(opts))
     sd = models.build_model(cfg.VOICE2POSE.GENERATOR.NAME, cfg, device="cpu",
                             generator=torch.Generator().manual_seed(seed)).state_dict()
     fn, has_code = build_serving_fn(cfg, sd, "cuda")
@@ -1199,6 +1210,146 @@ def test_speech_encoder_serving_replay_equals_eager(cuda, monkeypatch, tiny):
     with torch.inference_mode():
         eager = fn.module(audio, code)
     assert torch.equal(replayed, eager) and not torch.equal(replayed, outs[0])
+
+
+# ---- WavLM's gated relative-position attention --------------------------------------------
+
+# WavLM Large's window in the benchmark: 17.07 s, 256 pose-frames, 853 encoder frames
+WAVLM_WINDOW = ["DATASET.NUM_FRAMES", "256", "DATASET.AUDIO_LENGTH", "273067"]
+
+
+def _biased_inputs(seed, batch, t):
+    """WavLM Large's attention at ``batch`` clips of ``t`` frames in bf16: Q, K,
+    V (B, 16, t, 64) as the layers' maps give them (entries ~N(0, 0.4)), the
+    table of a N(0, 1) bucket embedding at (320, 800), and a layer's gated bias
+    from gate sums ~N(0, 2) and constants 1 + 0.5 z, the T-wide view of its
+    (.., t, T_pad) buffer."""
+    from speechdrivestemplates_tpu_torch.models import speech_encoder as SE
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device="cuda")
+
+    q, k, v = ((0.4 * randn(batch, 16, t, 64)).to(torch.bfloat16) for _ in range(3))
+    table = SE.position_table(randn(16, 320).to(torch.bfloat16), t, 320, 800)
+    bias = SE.gated_bias(table, 2.0 * randn(batch, t, 16, 2), 1.0 + 0.5 * randn(16))
+    return q, k, v, bias[..., :t]
+
+
+def test_wavlm_biased_attention_against_the_plain_route(cuda):
+    """At WavLM Large's heads (16 of 64) and T = 853, B = 2, bf16: the card's
+    biased route (the forced ``BIASED_BACKEND``, counted once) reads the bias
+    as the T-wide view of its buffer, every row 16-aligned, without padding it
+    again (no ``aten::pad`` / ``constant_pad_nd`` among the call's ops), and lies within
+    rel L2 2e-2 of the ``plain`` route (the math backend, counted once) and of
+    float32 math, each of which is within 1e-2 of the other."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.models import speech_encoder as SE
+
+    q, k, v, bias = _biased_inputs(41, 2, 853)
+    assert bias.shape == (2, 16, 853, 853) and bias.stride(-1) == 1
+    assert all(x % 16 == 0 for x in bias.stride()[:-1]), bias.stride()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = SE.attention(q, k, v, bias)
+        torch.cuda.synchronize()
+    ops = {e.key for e in prof.key_averages()}
+    assert not ops & {"aten::pad", "aten::constant_pad_nd"}, sorted(ops)
+    plain = SE.attention(q, k, v, bias, plain=True)
+    assert dict(kernels.ATTENTION) == {SE.BIASED_BACKEND: 1, "math": 1}
+    want = torch.softmax(q.float() @ k.float().transpose(-1, -2) / 8.0 + bias.float(), -1) \
+        @ v.float()
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    print(f"WavLM attention T=853 bf16: {SE.BIASED_BACKEND} vs plain {rel(got, plain):.3e}, "
+          f"vs fp32 {rel(got, want):.3e}; plain vs fp32 {rel(plain, want):.3e}")
+    assert rel(got, plain) < 2e-2 and rel(got, want) < 2e-2 and rel(plain, want) < 1e-2
+
+
+@pytest.mark.parametrize("tiny", [True, False], ids=["tiny", "published"])
+def test_wavlm_card_forward_against_its_plain_forward(cuda, monkeypatch, tiny):
+    """SDT-WavLM's bf16 serving call at B = 2 over 17 s windows (853 encoder
+    frames): every layer's attention on the forced biased backend, no flash or
+    math call; ``ln_gelu`` 7 launches with the convolutions' zero bias; within
+    rel L2 2e-2 of the same weights' ``plain`` forward (the math backend, the
+    convolutions without bias, the plain LayerNorm and GELU, the plain IN
+    layers)."""
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.models import speech_encoder as SE
+    from speechdrivestemplates_tpu_torch.ops.pose import get_final_results
+
+    fn, layers = _hubert_fn(monkeypatch, tiny, name="SequenceGeneratorWavLM",
+                            opts=WAVLM_WINDOW)
+    rng = np.random.RandomState(34)
+    audio, code = _randn(rng, 2, 273067, scale=0.1), _randn(rng, 2, 32)
+    kernels.reset_launch_counts()
+    got = fn(audio, code)
+    torch.cuda.synchronize()
+    assert dict(kernels.ATTENTION) == {SE.BIASED_BACKEND: layers}
+    assert kernels.LAUNCHES["ln_gelu"] == 7
+    m = fn.module
+    with torch.inference_mode():
+        pred = m.model(m.model.features(audio, True), m.num_frames, code, plain=True)
+        want = get_final_results(pred, m.mean.expand(2, -1), m.std.expand(2, -1),
+                                 m.scale.expand(2), m.hierarchical, m.num_kp)
+    assert dict(kernels.ATTENTION) == {SE.BIASED_BACKEND: layers, "math": layers}
+    rel = (torch.linalg.norm(got.float() - want.float())
+           / torch.linalg.norm(want.float())).item()
+    print(f"SDT-WavLM {'tiny' if tiny else 'published'} B=2 bf16: rel L2 card to plain "
+          f"{rel:.3e}")
+    assert got.shape == (2, 256, 2, 121) and rel < 2e-2, rel
+
+
+@pytest.mark.parametrize("tiny", [True, False], ids=["tiny", "published"])
+def test_wavlm_serving_replay_equals_eager(cuda, monkeypatch, tiny):
+    """SDT-WavLM's eager call, capture call and two replays return the same
+    poses, bit for bit; the biased attention is counted at the eager call and
+    the capture, once a layer each, and not at replays; the position table's
+    span opens once a host-run call, inside ``encoder.transformer``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.models import speech_encoder as SE
+    from speechdrivestemplates_tpu_torch.utils import trace
+
+    fn, layers = _hubert_fn(monkeypatch, tiny, name="SequenceGeneratorWavLM",
+                            opts=WAVLM_WINDOW)
+    rng = np.random.RandomState(35)
+    audio, code = _randn(rng, 2, 273067, scale=0.1), _randn(rng, 2, 32)
+    kernels.reset_launch_counts()
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        outs = [fn(audio, code) for _ in range(4)]
+        torch.cuda.synchronize()
+    rows, parents = list(trace.RECORDER.rows), list(trace.RECORDER.parents)
+    trace.reset()
+    assert dict(fn.routes) == {"eager": 1, "captured": 1, "replayed": 2}
+    diff = [float((o.float() - outs[0].float()).abs().max()) for o in outs[1:]]
+    assert bool(torch.isfinite(outs[0]).all()) and diff == [0.0] * 3, diff
+    assert dict(kernels.ATTENTION) == {SE.BIASED_BACKEND: 2 * layers}
+    table = [i for i, r in enumerate(rows) if r[0] == "encoder.position_bias"]
+    assert len(table) == 2 and all(rows[parents[i]][0] == "encoder.transformer" for i in table)
+
+
+def test_hubert_stays_on_flash_beside_wavlm(cuda, monkeypatch):
+    """With WavLM's biased route in the rule, a tiny SDT-HuBERT serving call
+    still runs flash alone, once a layer, and builds no position table."""
+    from speechdrivestemplates_tpu_torch import kernels
+    from speechdrivestemplates_tpu_torch.models import speech_encoder as SE
+
+    tables = []
+    monkeypatch.setattr(SE, "position_table", lambda *a: tables.append(a))
+    fn, layers = _hubert_fn(monkeypatch, True)
+    rng = np.random.RandomState(36)
+    kernels.reset_launch_counts()
+    fn(_randn(rng, 2, 68267, scale=0.1), _randn(rng, 2, 32))
+    torch.cuda.synchronize()
+    assert dict(kernels.ATTENTION) == {"flash": layers} and not tables
 
 
 # ---- the speech encoder's feature-encoder norm in one pass (sdt::ln_gelu) -----------------

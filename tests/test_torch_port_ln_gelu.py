@@ -96,7 +96,7 @@ def _composition_forward(enc, audio):
     """``SpeechEncoder.forward`` as it was before the kernel: every feature
     layer the convolution with its bias, ``F.layer_norm``, ``F.gelu``."""
     spec = enc.spec
-    convs, (pln_w, pln_b, proj_w, proj_b), (pos_w, pos_b), layers, (ln_w, ln_b) = \
+    convs, (pln_w, pln_b, proj_w, proj_b), (pos_w, pos_b), layers, (ln_w, ln_b), _ = \
         enc.weights()
     eps, h = spec.layer_norm_eps, spec.hidden_size
     x = audio.to(enc.dtype)[:, :, None]
